@@ -16,13 +16,24 @@ Phases (any failure raises and the script exits non-zero):
    the launches) are zeroed just before and read just after this phase;
    the kernels must have carried it and the degradation ladder must show
    no fault.
-3. Hold each kernel against its plain PyTorch version on the card, byte
-   for byte, at every shape phase 2 launched it at, and a sample against
-   the numpy reference codec; time both with CUDA events. Also, untimed:
-   K1 decode for three loss patterns (1 data shard; 2 data + mixed
-   parity; all data rebuilt from parity) and K2 at odd lengths. With
-   ``--kernels`` phase 2 is skipped and the main path's shapes are taken
-   from ``DEFAULT_SHAPES``.
+3. The cauchy storage class through the top-level object layer:
+   ``ServerPools`` over one pool of 2 erasure sets of 16 drives (32 local
+   drive directories), ``MINIO_TPU_EC_FAMILY=cauchy``: 8 concurrent
+   64 MiB PUTs at EC 8+8 and their GETs; a 64 MiB multipart upload of 4
+   concurrent 16 MiB parts through ``MultipartRouter``; a degraded GET
+   with 8 drives' object directories deleted (cauchy decode runs on the
+   host, as in the reference); a partial-repair heal of one lost data
+   shard; 4 concurrent 64 MiB PUTs and GETs at EC 12+4. Its own launch
+   counts are zeroed just before it and read just after: K3 must have
+   carried both geometries and K2 their digests, with no fault.
+4. Hold each kernel against its plain PyTorch version on the card, byte
+   for byte, at every shape phases 2 and 3 launched it at, and a sample
+   against the numpy reference codec; time both with CUDA events. Also,
+   untimed: K1 decode for three loss patterns (1 data shard; 2 data +
+   mixed parity; all data rebuilt from parity), K2 at odd lengths, K3 on
+   a binary matrix that no GF matrix maps to, at odd lengths and every
+   row alignment. With ``--kernels`` phases 2 and 3 are skipped and the
+   main path's shapes are taken from ``DEFAULT_SHAPES``.
 
 Prints one ``kernels`` JSON line, the dispatcher stats, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Needs one
@@ -113,12 +124,19 @@ def max_abs_err(torch, got, want) -> int:
 # (no object phase to read them from): the dispatcher's cap of 4,096
 # shards is 256 blocks at 8+8; degraded GETs decode 8-block windows padded
 # to 16 with all 8 data shards rebuilt from parity; EC 12+4 PUTs hash
-# 64 and 256 blocks of 16 shards of 87,382 bytes
+# 64 and 256 blocks of 16 shards of 87,382 bytes; cauchy PUTs apply the
+# [2p, 2d] composite to 256 blocks' a/b halves (K3 keys: B, 2d, 2p, h,
+# sub-chunks) and hash their 2 x 16 sub-chunks per block
 DEFAULT_SHAPES = {
     "fused_encode_hash": [("encode", 256, 8, 8, 131072)],
     "fused_decode_hash": [("decode", 16, 8, 8, 131072, tuple(range(8, 16)), tuple(range(8)))],
-    "hh_chain": [(1024, -(-MIB // 12)), (4096, -(-MIB // 12))],
+    "hh_chain": [(1024, -(-MIB // 12)), (4096, -(-MIB // 12)), (8192, 65536),
+                 (8192, -(-MIB // 12) // 2)],
+    "gf_apply": [(256, 16, 16, 65536, 2), (256, 24, 8, -(-MIB // 12) // 2, 2)],
 }
+# a fixed deployment id for the cauchy phase's ServerPools: the set each
+# key hashes to depends on it
+DEPLOYMENT_ID = "3f1c2b7a-5e4d-4c3b-9a2f-1e0d9c8b7a65"
 # the loss patterns of the multi-device graft drive, as (missing, present)
 # at 8+8: 1 data shard; 2 data + mixed parity; all data from parity
 LOSS_PATTERNS = [
@@ -197,10 +215,69 @@ def check_k2(torch, mods, g, rows: int, n: int, timed: bool) -> dict:
     return res
 
 
+def check_k3(torch, mods, g, key, timed: bool) -> dict:
+    """K3 at one main-path shape (B, 2d, 2p, h, 2): the cauchy composite
+    applied in place to [B, d, 2h] data, kernel vs its plain version on
+    the same inputs, byte for byte, a sample against the numpy cauchy
+    codec, and (if timed) CUDA-event times of both and of the library
+    product (``rs_torch.gf_apply_bits`` on the explicit composite)."""
+    import numpy as np
+
+    k3, ca, rt = mods["k3"], mods["cauchy"], mods["rt"]
+    b, kc, r, h, sub = key
+    if sub != 2 or kc % 2 or r % 2:
+        fail(f"K3 main-path shape {key} is not a cauchy composite")
+    d, p = kc // 2, r // 2
+    dev = torch.device(DEV)
+    w = ca.get_torch_codec(d, p, DEV).w_composite
+    x = torch.randint(0, 256, (b, d, 2 * h), dtype=torch.uint8, device=dev, generator=g)
+    run = lambda: k3.gf_apply_cuda(w, x, p, sub=2)  # noqa: E731
+    plain = lambda: k3.gf_apply_plain(w, x, p, sub=2)  # noqa: E731
+    out = run()
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, out, plain())
+    ref = ca.get_codec(d, p)
+    for bi in (0, b - 1):
+        full = np.zeros((d + p, 2 * h), dtype=np.uint8)
+        full[:d] = x[bi].cpu().numpy()
+        if not (ref.encode(full)[d:] == out[bi].cpu().numpy()).all():
+            fail(f"K3 {shape_name(key)}: parity differs from the numpy cauchy codec at block {bi}")
+    res = {"max_abs_err": err}
+    if timed:
+        bms, by = bound(b * kc * h, b * r * h, b * r * kc * h)
+        u = x.reshape(b, d, 2, h).transpose(1, 2).reshape(b, kc, h).contiguous()
+        wf = torch.from_numpy(w.astype(np.float32)).to(dev)
+        res.update(ms=cuda_ms(torch, run), plain_ms=cuda_ms(torch, plain, reps=5),
+                   bound_ms=bms, bound_by=by,
+                   library_ms=cuda_ms(torch, lambda: rt.gf_apply_bits(wf, u, r), reps=5))
+    return res
+
+
+def check_k3_binary(torch, mods, g, k: int, r: int, n: int) -> dict:
+    """K3 untimed on a random [8r, 8k] binary matrix that is the image of
+    no GF matrix, rows of n bytes at each of the 4 alignments (the last
+    placement ends at its buffer's last byte)."""
+    import numpy as np
+
+    k3 = mods["k3"]
+    w = np.random.default_rng(n * 131 + k).integers(0, 2, size=(8 * r, 8 * k)).astype(np.int8)
+    w[0, :8] = 1  # block (0, 0) maps byte 1 to 0xff and bytes 2..128 to 0:
+    w[1:8, :8] = 0  # no GF(2^8) multiplication does that
+    buf = torch.randint(0, 256, (3 * k * n + 3,), dtype=torch.uint8, device=torch.device(DEV),
+                        generator=g)
+    err = 0
+    for off in range(4):
+        x = buf[off: off + 3 * k * n].view(3, k, n)
+        err = max(err, max_abs_err(torch, k3.gf_apply_cuda(w, x, r), k3.gf_apply_plain(w, x, r)))
+    return {"max_abs_err": err}
+
+
 def shape_name(key) -> str:
     if isinstance(key[0], str):
         s = f"{key[0]} B={key[1]} {key[2]}+{key[3]} n={key[4]}"
         return s + (f" missing={list(key[6])}" if key[0] == "decode" else "")
+    if len(key) == 5:
+        return f"B={key[0]} {key[1]}x{key[2]} composite n={key[3]} sub={key[4]}"
     return f"rows={key[0]} n={key[1]}"
 
 
@@ -214,21 +291,28 @@ def kernel_phase(torch, mods, shapes: dict) -> dict:
     res: dict = {}
 
     def weight(key):
-        """Bytes hashed per launch: B (d + r) n for K1, B n for K2."""
+        """Bytes hashed per launch: B (d + r) n for K1, B n for K2; bytes
+        moved, B (k + r) n, for K3."""
         if isinstance(key[0], str):
             r = key[3] if key[0] == "encode" else len(key[6])
             return key[1] * (key[2] + r) * key[4]
+        if len(key) == 5:
+            return key[0] * (key[1] + key[2]) * key[3]
         return key[0] * key[1]
 
-    for name in ("fused_encode_hash", "fused_decode_hash", "hh_chain"):
+    checks = {"fused_encode_hash": lambda key: check_k1(torch, mods, g, key, timed=True),
+              "fused_decode_hash": lambda key: check_k1(torch, mods, g, key, timed=True),
+              "hh_chain": lambda key: check_k2(torch, mods, g, key[0], key[1], timed=True),
+              "gf_apply": lambda key: check_k3(torch, mods, g, key, timed=True)}
+    for name, check in checks.items():
         per = []
         for key, launches in sorted(shapes[name].items(), key=lambda kv: -(kv[1] or 1) * weight(kv[0])):
-            r = (check_k2(torch, mods, g, key[0], key[1], timed=True) if name == "hh_chain"
-                 else check_k1(torch, mods, g, key, timed=True))
+            r = check(key)
             r.update(shape=shape_name(key), launches=launches)
             per.append(r)
             print(f"{name} {r['shape']}: launches={launches} err={r['max_abs_err']} "
-                  f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f}",
+                  f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f}"
+                  + (f" library_ms={r['library_ms']:.4f}" if "library_ms" in r else ""),
                   flush=True)
         res[name] = {"main": per[0], "shapes": per}
 
@@ -241,6 +325,10 @@ def kernel_phase(torch, mods, shapes: dict) -> dict:
         extra.append(("fused_decode_hash", shape_name(key), check_k1(torch, mods, g, key, False)))
     for nn in (0, 1, 31, 32, 33, 34, 38, 65, 95):
         extra.append(("hh_chain", f"rows=1000 n={nn}", check_k2(torch, mods, g, 1000, nn, False)))
+    for nn in (1, 15, 17, 511, 43691):
+        for k, r in ((5, 3), (24, 8)):
+            extra.append(("gf_apply", f"binary {8 * r}x{8 * k} B=3 n={nn} offsets 0-3",
+                          check_k3_binary(torch, mods, g, k, r, nn)))
     for name, shape, r in extra:
         res[name]["shapes"].append(dict(r, shape=shape, launches=None))
         print(f"{name} {shape}: err={r['max_abs_err']}", flush=True)
@@ -265,23 +353,6 @@ def object_phase(torch, mods, root: str) -> dict:
     es.make_bucket("smoke")
     rng = np.random.default_rng(SEED)
     t: dict = {}
-
-    def run_all(fn, items):
-        errs = []
-
-        def one(it):
-            try:
-                fn(it)
-            except BaseException as e:  # noqa: BLE001 — re-raised below
-                errs.append(e)
-
-        th = [threading.Thread(target=one, args=(it,)) for it in items]
-        for x in th:
-            x.start()
-        for x in th:
-            x.join()
-        if errs:
-            raise errs[0]
 
     def get_md5(key):
         _, it = es.get_object("smoke", key)
@@ -381,6 +452,174 @@ def object_phase(torch, mods, root: str) -> dict:
             "total_bytes": 64 * MIB * (len(objs88) + len(objs124) + 2)}
 
 
+def run_all(fn, items) -> None:
+    """fn(item) for every item on its own thread; re-raises the first error."""
+    errs = []
+
+    def one(it):
+        try:
+            fn(it)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errs.append(e)
+
+    th = [threading.Thread(target=one, args=(it,)) for it in items]
+    for x in th:
+        x.start()
+    for x in th:
+        x.join()
+    if errs:
+        raise errs[0]
+
+
+def cauchy_phase(torch, mods, root: str) -> dict:
+    """The cauchy storage class through ServerPools -> ErasureSets ->
+    ErasureSet on 32 drive directories (2 sets of 16), with multipart,
+    degraded GET and partial-repair heal (module docstring, phase 3)."""
+    import numpy as np
+
+    from minio_tpu_torch.erasure import coder
+    from minio_tpu_torch.erasure.multipart import MultipartRouter
+    from minio_tpu_torch.erasure.pools import ServerPools
+    from minio_tpu_torch.erasure.sets import ErasureSets
+    from minio_tpu_torch.parallel import dispatcher
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+
+    k3, bc = mods["k3"], mods["bc"]
+    bucket = "cauchy"
+    os.environ["MINIO_TPU_EC_FAMILY"] = "cauchy"  # the storage class of every write below
+    drives = [[os.path.join(root, f"s{s}d{i}") for i in range(16)] for s in range(2)]
+    sp = ServerPools([ErasureSets([[XLStorage(p) for p in row] for row in drives],
+                                  deployment_id=DEPLOYMENT_ID, default_parity=8)])
+    sp.make_bucket(bucket)
+    rng = np.random.default_rng(SEED + 1)
+    objs88 = {f"c88-{i}": rng.integers(0, 256, 64 * MIB, dtype=np.uint8).tobytes()
+              for i in range(8)}
+    objs124 = {f"c124-{i}": rng.integers(0, 256, 64 * MIB, dtype=np.uint8).tobytes()
+               for i in range(4)}
+    parts = [rng.integers(0, 256, 16 * MIB, dtype=np.uint8).tobytes() for _ in range(4)]
+    md5 = {k: hashlib.md5(v).hexdigest() for k, v in {**objs88, **objs124}.items()}
+    md5["c88-mp"] = hashlib.md5(b"".join(parts)).hexdigest()
+    t: dict = {}
+
+    def get_md5(key):
+        _, it = sp.get_object(bucket, key)
+        h = hashlib.md5()
+        for c in it:
+            h.update(c)
+        return h.hexdigest()
+
+    def set_drives(key):
+        pool = sp.pools[0]
+        return drives[pool.sets.index(pool.get_hashed_set(key))]
+
+    def part_file(drive, key) -> bytes:
+        for dp, _, fs in os.walk(os.path.join(drive, bucket, key)):
+            if "part.1" in fs:
+                with open(os.path.join(dp, "part.1"), "rb") as fh:
+                    return fh.read()
+        return b""
+
+    fam0 = coder.family_stats_snapshot()["cauchy"]
+    disp0 = {k: d.stats_snapshot() for k, d in dispatcher._dispatchers.items()}
+    # counts zeroed just before this path runs
+    k3.launches = bc.launches = 0
+    k3.launch_shapes.clear()
+    bc.launch_shapes.clear()
+    t0 = time.perf_counter()
+    run_all(lambda k: sp.put_object(bucket, k, objs88[k]), list(objs88))
+    t["put_8+8_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k in objs88:
+        if get_md5(k) != md5[k]:
+            fail(f"cauchy GET {k}: md5 mismatch")
+    t["get_8+8_s"] = time.perf_counter() - t0
+    before = (k3.launches, bc.launches)
+    sp.put_object(bucket, "c88-lone", objs88["c88-0"])
+    lone = {"8+8 cauchy K3": k3.launches - before[0], "8+8 cauchy K2": bc.launches - before[1]}
+    if get_md5("c88-lone") != md5["c88-0"]:
+        fail("cauchy GET c88-lone: md5 mismatch")
+
+    # multipart: 4 parts of 16 MiB uploaded concurrently, then completed
+    router = MultipartRouter(sp)
+    uid = router.new_upload(bucket, "c88-mp")
+    etags: list = [None] * len(parts)
+    t0 = time.perf_counter()
+    run_all(lambda i: etags.__setitem__(i, (i + 1, router.put_part(bucket, "c88-mp", uid, i + 1,
+                                                                   parts[i]))),
+            range(len(parts)))
+    oi = router.complete(bucket, "c88-mp", uid, etags)
+    t["multipart_4x16MiB_s"] = time.perf_counter() - t0
+    want = hashlib.md5(b"".join(hashlib.md5(p).digest() for p in parts)).hexdigest() + "-4"
+    if oi.etag != want or sp.get_object_info(bucket, "c88-mp").etag != want:
+        fail(f"multipart ETag {oi.etag} != {want}")
+    if get_md5("c88-mp") != md5["c88-mp"]:
+        fail("cauchy GET c88-mp: md5 mismatch")
+
+    # degraded GET: 8 of the 16 drives lose the object (host decode)
+    ds = set_drives("c88-2")
+    for d in ds[:8]:
+        shutil.rmtree(os.path.join(d, bucket, "c88-2"), ignore_errors=True)
+    t0 = time.perf_counter()
+    _, it = sp.get_object(bucket, "c88-2")
+    if b"".join(it) != objs88["c88-2"]:
+        fail("cauchy degraded GET c88-2: bytes differ")
+    t["degraded_get_8+8_s"] = time.perf_counter() - t0
+
+    # partial repair: the drive holding data shard 0 of another object
+    ds = set_drives("c88-3")
+    dist = XLStorage(ds[0]).read_version(bucket, "c88-3", "").erasure.distribution
+    lost = ds[dist.index(1)]
+    original = part_file(lost, "c88-3")
+    shutil.rmtree(os.path.join(lost, bucket, "c88-3"))
+    f0 = coder.family_stats_snapshot()["cauchy"]
+    t0 = time.perf_counter()
+    healed = sp.heal_object(bucket, "c88-3")
+    t["heal_1_shard_8+8_s"] = time.perf_counter() - t0
+    f1 = coder.family_stats_snapshot()["cauchy"]
+    repair = {k: f1[k] - f0[k] for k in ("repair_partial_blocks", "heal_ingress_bytes")}
+    repair["full_read_bytes"] = 8 * len(original)
+    if len(healed["healed"]) != 1 or part_file(lost, "c88-3") != original:
+        fail(f"cauchy heal did not rebuild the lost shard file: {healed}")
+    if repair["repair_partial_blocks"] <= 0 or not \
+            0 < repair["heal_ingress_bytes"] < repair["full_read_bytes"]:
+        fail(f"cauchy heal did not take the partial repair: {repair}")
+    if get_md5("c88-3") != md5["c88-3"]:
+        fail("cauchy GET c88-3 after heal: md5 mismatch")
+
+    t0 = time.perf_counter()
+    run_all(lambda k: sp.put_object(bucket, k, objs124[k], parity=4), list(objs124))
+    t["put_12+4_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k in objs124:
+        if get_md5(k) != md5[k]:
+            fail(f"cauchy GET {k}: md5 mismatch")
+    t["get_12+4_s"] = time.perf_counter() - t0
+    # counts read just after
+    launches = {"gf_apply": k3.launches, "hh_chain": bc.launches}
+    shapes = {"gf_apply": dict(k3.launch_shapes), "hh_chain": dict(bc.launch_shapes)}
+    geoms = {(key[1], key[2]) for key in shapes["gf_apply"]}
+    if not {(16, 16), (24, 8)} <= geoms or bc.launches == 0:
+        fail(f"cauchy path missed a kernel or a geometry: {launches} {shapes['gf_apply']}")
+
+    fam = {k: v - fam0[k] for k, v in coder.family_stats_snapshot()["cauchy"].items()}
+    stats = {}
+    for key, d in dispatcher._dispatchers.items():
+        st, st0 = d.stats_snapshot(), disp0.get(key)
+        for f in ("fused_failures", "device_faults", "numpy_blocks"):
+            if st[f]:
+                fail(f"dispatcher {key[0]}+{key[1]}: {f}={st[f]}")
+        stats[f"{key[0]}+{key[1]}"] = {
+            f: st[f] - (st0[f] if st0 else 0)
+            for f in ("dispatches", "blocks", "fused", "device_s", "host_s", "queue_wait_s",
+                      "pad_blocks")}
+    served = sum(v["blocks"] for v in stats.values())
+    if fam["encode_blocks"] != served or served == 0:
+        fail(f"cauchy encode_blocks {fam['encode_blocks']} != blocks served on the device {served}")
+    return {"launches": launches, "shapes": shapes, "lone_put_launches": lone,
+            "stats": stats, "family_stats": fam, "repair": repair, "seconds": t,
+            "total_bytes": 64 * MIB * (len(objs88) + len(objs124) + 2)}
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -405,7 +644,8 @@ def main(argv: list[str]) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from minio_tpu_torch.ops import (
-        _build, bitrot_cuda, bitrot_torch, fused_cuda, gf, highwayhash, rs, rs_torch,
+        _build, bitrot_cuda, bitrot_torch, cauchy, fused_cuda, gf, highwayhash, rs, rs_cuda,
+        rs_torch,
     )
 
     t0 = time.perf_counter()
@@ -414,18 +654,30 @@ def main(argv: list[str]) -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s", flush=True)
     mods = {"_build": _build, "fc": fused_cuda, "bc": bitrot_cuda, "bt": bitrot_torch,
-            "rs": rs, "rt": rs_torch, "gf": gf, "hh": highwayhash}
-    obj = None
+            "rs": rs, "rt": rs_torch, "gf": gf, "hh": highwayhash, "k3": rs_cuda,
+            "cauchy": cauchy}
+    obj = cph = None
     if "--kernels" in argv:
         # no main path run: the shapes it would give, launches not measured
         shapes = {k: dict.fromkeys(v) for k, v in DEFAULT_SHAPES.items()}
+        launches = dict.fromkeys(shapes)
     else:
-        root = tempfile.mkdtemp(prefix="chip_smoke_drives_", dir=HERE)
-        try:
-            obj = object_phase(torch, mods, root)
-        finally:
-            shutil.rmtree(root, ignore_errors=True)
-        shapes = obj["shapes"]
+        phases = []
+        for phase in (object_phase, cauchy_phase):
+            root = tempfile.mkdtemp(prefix="chip_smoke_drives_", dir=HERE)
+            try:
+                phases.append(phase(torch, mods, root))
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+                os.environ.pop("MINIO_TPU_EC_FAMILY", None)
+        obj, cph = phases
+        # each path's own counts, read just after it ran, summed per kernel
+        shapes = {**obj["shapes"], "gf_apply": cph["shapes"]["gf_apply"],
+                  "hh_chain": {**obj["shapes"]["hh_chain"]}}
+        for key, n in cph["shapes"]["hh_chain"].items():
+            shapes["hh_chain"][key] = shapes["hh_chain"].get(key, 0) + n
+        launches = {**obj["launches"], "gf_apply": cph["launches"]["gf_apply"],
+                    "hh_chain": obj["launches"]["hh_chain"] + cph["launches"]["hh_chain"]}
     # the kernels against their plain versions at the main path's shapes;
     # these launches come after the counts were read and are not counted
     kres = kernel_phase(torch, mods, shapes)
@@ -435,22 +687,26 @@ def main(argv: list[str]) -> int:
         "fused_decode_hash": ("minio_tpu_torch/csrc/fused_encode_hash.cu",
                               "minio_tpu/ops/fused_pallas.py:315"),
         "hh_chain": ("minio_tpu_torch/csrc/hh_chain.cu", "minio_tpu/ops/bitrot_pallas.py:66"),
+        "gf_apply": ("minio_tpu_torch/csrc/gf_apply.cu", "minio_tpu/ops/rs_pallas.py:75"),
     }
     kernels = []
     for name, (src, rep) in meta.items():
         r = kres[name]["main"]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": obj["launches"][name] if obj else None,
+            "launches": launches[name],
             "max_abs_err": kres[name]["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "shape": r["shape"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"), "shape": r["shape"],
         })
     if obj:
         print(json.dumps({"dispatcher_stats": obj["stats"], "decode_stats": obj["decode_stats"]}))
         print(json.dumps({"object_phase_seconds": obj["seconds"],
                           "object_bytes": obj["total_bytes"], "build_s": build_s,
                           "lone_put_launches": obj["lone_put_launches"]}))
+        print(json.dumps({"cauchy_phase": {
+            k: cph[k] for k in ("launches", "lone_put_launches", "stats", "family_stats",
+                                "repair", "seconds", "total_bytes")}}))
     print(json.dumps({"kernel_shapes": {k: v["shapes"] for k, v in kres.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(card)

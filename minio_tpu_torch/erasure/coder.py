@@ -10,14 +10,15 @@ byte-identical. GetObject/Heal reconstruction follows the same split.
 
 CODE FAMILIES: two families share this interface — ``reedsolomon``
 (ops/rs.py / ops/rs_torch.py, the default) and ``cauchy`` (ops/cauchy.py:
-Cauchy MDS with piggybacked sub-chunks for partial repair). The cauchy
-family's device path is not ported: it encodes and decodes on the
-numpy/native plane. The family is chosen per storage class at write time
-(MINIO_TPU_EC_FAMILY*), recorded in xl.meta (ErasureInfo.algorithm),
-and every decode/heal path dispatches on the STORED family, so objects
-of both families coexist on the same drives. Per-family counters
-(encode/decode blocks, heal/degraded ingress bytes) aggregate here for
-the metrics-v3 /api/tpu group.
+Cauchy MDS with piggybacked sub-chunks for partial repair). Cauchy full
+blocks of an even shard size encode on the device (K3 + K2 through the
+dispatcher); odd sizes, decode and partial repair stay on the
+numpy/native plane, as in the reference. The family is chosen per
+storage class at write time (MINIO_TPU_EC_FAMILY*), recorded in xl.meta
+(ErasureInfo.algorithm), and every decode/heal path dispatches on the
+STORED family, so objects of both families coexist on the same drives.
+Per-family counters (encode/decode blocks, heal/degraded ingress bytes)
+aggregate here for the metrics-v3 /api/tpu group.
 
 Backend: MINIO_TPU_BACKEND=numpy keeps every block on the host; any other
 value (default) builds a device codec on the torch device that
@@ -196,14 +197,16 @@ class ErasureCoder:
             self._np = cauchy_mod.get_codec(self.d, self.p)
         else:
             self._np = rs.get_codec(self.d, self.p)
-        # device codec: reedsolomon only (the cauchy device path is not
-        # ported); creating it on CUDA builds the kernels, and a build
-        # error propagates
+        # device codec of the family; creating it on CUDA builds the
+        # kernels, and a build error propagates
         self._dev = None
-        if _use_device() and self.family != FAMILY_CAUCHY:
-            from ..ops import rs_torch
+        if _use_device():
+            if self.family == FAMILY_CAUCHY:
+                self._dev = cauchy_mod.get_torch_codec(self.d, self.p)
+            else:
+                from ..ops import rs_torch
 
-            self._dev = rs_torch.get_torch_codec(self.d, self.p)
+                self._dev = rs_torch.get_torch_codec(self.d, self.p)
 
     @property
     def device_active(self) -> bool:
@@ -243,9 +246,13 @@ class ErasureCoder:
 
         digests: [B, t, 32] for reedsolomon, [B, t, 2, 32] (per
         sub-chunk) for cauchy. The device path goes through the batching
-        dispatcher: blocks from concurrent requests coalesce into one
-        stream. Cauchy blocks take the numpy path below."""
-        if self._dev is not None:
+        dispatcher: blocks from concurrent requests of BOTH families
+        coalesce into one stream (family tag per batch entry). The
+        cauchy composite apply needs an even shard size; odd geometries
+        take the numpy path below."""
+        if self._dev is not None and (
+            self.family != FAMILY_CAUCHY or blocks.shape[2] % 2 == 0
+        ):
             from ..parallel.dispatcher import get_dispatcher
 
             return get_dispatcher(self._dev, blocks.shape[2]).encode(

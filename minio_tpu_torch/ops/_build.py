@@ -37,6 +37,10 @@ SIGNATURES = {
         # (msgs, rows, n, k0..k3, out, stream)
         "hh_chain": [_P, _I64, _I64, _U64, _U64, _U64, _U64, _P, _P],
     },
+    "gf_apply": {
+        # (in, in_bs, out, out_bs, B, k, r, n, tables, offs, stream)
+        "gf_apply": [_P, _I64, _P, _I64, _I64, _I, _I, _I64, _P, _P, _P],
+    },
     "fused_encode_hash": {
         # (data, B, d, p, n, tables, k0..k3, out, digests, stream)
         "fused_encode_hash": [_P, _I64, _I, _I, _I64, _P,

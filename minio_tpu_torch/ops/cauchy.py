@@ -37,9 +37,11 @@ On-disk framing (erasure/bitrot_io.py): each shard block stores TWO
 bitrot frames, ``H(sub1) || sub1 || H(sub2) || sub2``, so sub-chunk
 ranged reads stay bitrot-verified without touching the other half.
 
-Byte-identity contract: the numpy paths here are the reference; the XLA
-(``CauchyTpuCodec``) and Pallas (``encode_blocks_pallas``) paths must
-agree bit-for-bit (tests/test_cauchy.py pins all three).
+Byte-identity contract: the numpy paths here are the reference; the
+device codec (``CauchyTorchCodec``, K3 reading the sub-chunks in place)
+and ``encode_kernel`` (K3 on the explicit composite, the counterpart of
+the JAX package's Pallas route) must agree bit-for-bit with it and with
+the JAX package (tests/test_torch_cauchy.py).
 """
 
 from __future__ import annotations
@@ -48,7 +50,9 @@ import functools
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
+from .. import device as devmod
 from . import decode_cache, gf
 
 FAMILY = "cauchy"
@@ -63,7 +67,12 @@ __all__ = [
     "CauchyPiggyback",
     "RepairSchedule",
     "get_codec",
-    "get_tpu_codec",
+    "composite_parity_matrix",
+    "CauchyTorchCodec",
+    "get_torch_codec",
+    "torch_codec_from_matrices",
+    "encode_and_hash_cauchy",
+    "encode_kernel",
 ]
 
 
@@ -430,14 +439,140 @@ def get_codec(data_shards: int, parity_shards: int) -> CauchyPiggyback:
 
 
 # -- device paths -----------------------------------------------------------
-#
-# The cauchy family's device encode (composite bit-plane matmul) is not
-# ported yet: the port's ErasureCoder keeps cauchy objects on the
-# numpy/native plane, and these entry points say so loudly.
 
-def get_tpu_codec(data_shards: int, parity_shards: int):
-    raise NotImplementedError("cauchy device codec is not ported to torch yet")
+def composite_parity_matrix(codec: CauchyPiggyback) -> np.ndarray:
+    """[2p, 2d] GF matrix computing both parity sub-chunks in ONE apply:
+    input rows [a_0..a_{d-1}, b_0..b_{d-1}], output rows
+    [pa_0..pa_{p-1}, pb_0..pb_{p-1}] (even shard sizes only; odd ones
+    take the numpy path)."""
+    d, p = codec.data_shards, codec.parity_shards
+    m = np.zeros((2 * p, 2 * d), dtype=np.uint8)
+    m[:p, :d] = codec.parity_matrix
+    m[p:, :d] = codec.pb_matrix
+    m[p:, d:] = codec.parity_matrix
+    return m
 
 
-def encode_and_hash_cauchy(codec, data, key: bytes | None = None):
-    raise NotImplementedError("cauchy device encode is not ported to torch yet")
+class CauchyTorchCodec:
+    """Device-side cauchy encode on one torch device: the composite
+    [2p, 2d] matrix's bit planes applied by K3 (ops/rs_cuda.py), which
+    reads the a and b halves of each data shard and writes those of each
+    parity shard in place. Decode stays on the numpy/native plane, as in
+    the reference.
+
+    It offers the RS torch codec's surface (``device``, ``as_tensor``,
+    ``data_shards``, ``parity_shards``, ``family``, ``encode_blocks``):
+    dispatchers are keyed by shape, so a dispatcher this codec founds also
+    serves reedsolomon blocks of the same shape, and calls these on it.
+    Creating it on a CUDA device builds the port's kernels."""
+
+    family = FAMILY
+
+    def __init__(self, data_shards: int, parity_shards: int,
+                 device: str | torch.device | None = None):
+        from .rs_torch import gf_matrix_to_bitplanes
+
+        self.device = devmod.resolve(device)
+        self.data_shards = data_shards
+        self.parity_shards = parity_shards
+        self.total_shards = data_shards + parity_shards
+        self._ref = get_codec(data_shards, parity_shards)
+        self.parity_matrix = self._ref.parity_matrix
+        self.pb_matrix = self._ref.pb_matrix
+        self.w_composite = gf_matrix_to_bitplanes(composite_parity_matrix(self._ref))
+        if self.device.type == "cuda":
+            from . import _build
+
+            _build.load()
+
+    def as_tensor(self, x) -> torch.Tensor:
+        """uint8 array/tensor -> uint8 tensor on this codec's device."""
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=torch.uint8)
+        a = np.asarray(x, dtype=np.uint8)
+        if not a.flags.writeable or not a.flags.c_contiguous:
+            a = np.array(a, dtype=np.uint8)
+        return torch.from_numpy(a).to(self.device)
+
+    def encode_blocks(self, data) -> torch.Tensor:
+        """[..., d, per] uint8 (per even) -> [..., p, per] parity, on the
+        codec's device."""
+        from .rs_cuda import gf_apply_cuda
+
+        data = self.as_tensor(data)
+        *batch, d, per = data.shape
+        if per % 2:
+            raise ValueError("device cauchy encode needs an even shard size")
+        par = gf_apply_cuda(self.w_composite, data.reshape(-1, d, per),
+                            self.parity_shards, sub=SUB_CHUNKS)
+        return par.reshape(*batch, self.parity_shards, per)
+
+
+@functools.lru_cache(maxsize=None)
+def _torch_codec(data_shards: int, parity_shards: int, device: str) -> CauchyTorchCodec:
+    return CauchyTorchCodec(data_shards, parity_shards, device)
+
+
+def get_torch_codec(data_shards: int, parity_shards: int,
+                    device: str | torch.device | None = None) -> CauchyTorchCodec:
+    return _torch_codec(data_shards, parity_shards, str(devmod.resolve(device)))
+
+
+def torch_codec_from_matrices(parity_matrix: np.ndarray, pb_matrix: np.ndarray,
+                              device: str | torch.device | None = None) -> CauchyTorchCodec:
+    """The port's cauchy codec for another codec's matrices (numpy
+    arrays): the Cauchy parity matrix [p, d] and the piggyback matrix
+    [p, d]. Raises when they are not the matrices this package derives
+    for (d, p): decode and repair use the same construction, so a
+    mismatch would rebuild wrong bytes."""
+    pm = np.asarray(parity_matrix, dtype=np.uint8)
+    p, d = pm.shape
+    codec = get_torch_codec(d, p, device)
+    if not np.array_equal(codec.parity_matrix, pm):
+        raise ValueError(f"parity matrix differs from this package's cauchy({d + p},{d})")
+    if not np.array_equal(codec.pb_matrix, np.asarray(pb_matrix, dtype=np.uint8)):
+        raise ValueError(f"piggyback matrix differs from this package's cauchy({d + p},{d})")
+    return codec
+
+
+def encode_and_hash_cauchy(codec: CauchyTorchCodec, data, key: bytes | None = None):
+    """Device dispatch for the cauchy family: composite encode (K3) +
+    per-SUB-CHUNK HighwayHash digests (K2; two bitrot frames per shard
+    block, the family's on-disk format).
+
+    data: [B, d, per] uint8, per even. Returns tensors on the codec's
+    device: (parity [B, p, per], digests [B, t, 2, 32])."""
+    from .bitrot_cuda import hash256_blocks
+    from .highwayhash import MINIO_KEY
+
+    if key is None:
+        key = MINIO_KEY
+    data = codec.as_tensor(data)
+    b, d, per = data.shape
+    h = per // 2
+    parity = codec.encode_blocks(data)
+    shards = torch.cat([data, parity], dim=1)  # [B, t, per]
+    t = codec.total_shards
+    digests = hash256_blocks(shards.reshape(b * t * 2, h), key).reshape(b, t, 2, 32)
+    return parity, digests
+
+
+def encode_kernel(codec: CauchyPiggyback, data) -> torch.Tensor:
+    """Counterpart of the reference's ``encode_blocks_pallas``: the
+    [B, 2d, h] a/b composite built explicitly (a copy) and applied by K3
+    with the plain contract. data: [B, d, per] uint8 (numpy or tensor;
+    numpy goes to the default device) -> parity [B, p, per]."""
+    from .rs_cuda import gf_apply_cuda
+    from .rs_torch import gf_matrix_to_bitplanes
+
+    if not isinstance(data, torch.Tensor):
+        data = torch.from_numpy(np.ascontiguousarray(data, dtype=np.uint8)).to(devmod.resolve())
+    b, d, per = data.shape
+    if per % 2:
+        raise ValueError("device cauchy encode needs an even shard size")
+    h = per // 2
+    p = codec.parity_shards
+    w = gf_matrix_to_bitplanes(composite_parity_matrix(codec))
+    u = data.reshape(b, d, 2, h).transpose(1, 2).reshape(b, 2 * d, h)
+    par = gf_apply_cuda(w, u, 2 * p)
+    return par.reshape(b, 2, p, h).transpose(1, 2).reshape(b, p, per)

@@ -54,9 +54,11 @@ from ..qos.context import (
 # (K1) -> bit-plane torch product + chain kernel (K2) -> pure-numpy CPU.
 # Injected faults (fault_registry.DeviceFault) walk it: kernel-fail skips
 # K1 with backoff, repeated device-lost demotes to numpy, and background
-# probe batches re-promote. The numpy rung is byte-identical to the
-# device rungs, so degraded mode changes latency, never payloads. A real
-# kernel or CUDA error is not a rung: it fails the batch's waiters.
+# probe batches re-promote. Cauchy batches have no fused rung: their
+# device rung is the composite apply (K3) + K2. The numpy rung is
+# byte-identical to the device rungs, so degraded mode changes latency,
+# never payloads. A real kernel or CUDA error is not a rung: it fails
+# the batch's waiters.
 LEVEL_FUSED = 2
 LEVEL_UNFUSED = 1
 LEVEL_NUMPY = 0

@@ -228,7 +228,7 @@ def test_fused_decode_injected_fault_takes_bitplane_path(monkeypatch, encoded):
 
 def test_build_interface_declares_void_pointers():
     assert {os.path.basename(s) for s in _build.sources()} == {
-        "fused_encode_hash.cu", "hh_chain.cu"}
+        "fused_encode_hash.cu", "gf_apply.cu", "hh_chain.cu"}
     for name, fns in _build.SIGNATURES.items():
         assert os.path.exists(os.path.join(_build.CSRC, name + ".cu"))
         for argtypes in fns.values():

@@ -39,11 +39,56 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+# the one relative import of the port that names a module it lacks: the
+# cache's peer coherence imports cluster.grid lazily, only with peers
+# configured, and cluster/ is not ported yet
+MISSING_OK = {("cache/coherence.py", "minio_tpu_torch.cluster.grid")}
+
+
+def _module_exists(parts) -> bool:
+    base = os.path.join(ROOT, *parts)
+    return os.path.exists(base + ".py") or os.path.exists(os.path.join(base, "__init__.py"))
+
+
+def _relative_imports(path):
+    """(module, lineno) of every relative import in ``path``; for a
+    ``from .pkg import name`` where name is a submodule, the submodule."""
+    rel = os.path.relpath(path, ROOT)[:-3].split(os.sep)
+    pkg = rel[:-1]
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.ImportFrom) or node.level == 0:
+            continue
+        mod = pkg[: len(pkg) - (node.level - 1)] + (node.module.split(".") if node.module else [])
+        if not _module_exists(mod) or not os.path.isdir(os.path.join(ROOT, *mod)):
+            yield mod, node.lineno
+            continue
+        init = open(os.path.join(ROOT, *mod, "__init__.py"), encoding="utf-8").read()
+        for a in node.names:
+            if not _module_exists(mod + [a.name]) and a.name not in init:
+                yield mod + [a.name], node.lineno
+
+
+def test_relative_imports_resolve_inside_the_port():
+    missing = []
+    for path in _files()[1:]:
+        for mod, ln in _relative_imports(path):
+            name = ".".join(mod)
+            where = os.path.relpath(path, PKG).replace(os.sep, "/")
+            if not _module_exists(mod) and (where, name) not in MISSING_OK:
+                missing.append(f"{where}:{ln} -> {name}")
+    assert not missing, missing
+    assert all(not _module_exists(m.split(".")) for _, m in MISSING_OK)
+
+
 def test_import_pulls_in_no_jax():
     code = (
         "import sys\n"
         "import minio_tpu_torch.erasure.set, minio_tpu_torch.parallel.dispatcher\n"
         "import minio_tpu_torch.ops.fused_cuda, minio_tpu_torch.ops.bitrot_cuda\n"
+        "import minio_tpu_torch.ops.rs_cuda, minio_tpu_torch.ops.cauchy\n"
+        "import minio_tpu_torch.erasure.pools, minio_tpu_torch.erasure.multipart\n"
+        "import minio_tpu_torch.placement, minio_tpu_torch.utils.checksum\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
     )
