@@ -30,15 +30,23 @@ Phases (any failure raises and the script exits non-zero):
    for byte, at every shape phases 2 and 3 launched it at, and a sample
    against the numpy reference codec; time both with CUDA events. Also,
    untimed: K1 decode for three loss patterns (1 data shard; 2 data +
-   mixed parity; all data rebuilt from parity), K2 at odd lengths, K3 on
-   a binary matrix that no GF matrix maps to, at odd lengths and every
-   row alignment. With ``--kernels`` phases 2 and 3 are skipped and the
-   main path's shapes are taken from ``DEFAULT_SHAPES``.
+   mixed parity; all data rebuilt from parity), K2 at odd lengths and on
+   rows starting at every offset 0-15 (n = 31, 32, 33, 65,536, 87,382),
+   K3 on a binary matrix that no GF matrix maps to, at odd lengths and
+   every row alignment. Timed besides: K1's GF launch alone at each K1
+   shape, and K2 on a single chain (rows=1, n=131,072), the per-chain
+   floor, and K2 on 8,192 rows of 65,536, of 43,691 and of 43,680 bytes
+   (aligned rows, rows at odd addresses, and aligned rows of the odd
+   rows' whole-packet length), whose time per packet round the script
+   compares. With ``--kernels`` phases 2 and 3 are skipped and the main
+   path's shapes are taken from ``DEFAULT_SHAPES``.
 
-Prints one ``kernels`` JSON line, the dispatcher stats, the card's name
-and power limit, and last ``{"ok": true, "device": {...}}``. Needs one
-CUDA card; without one (or without the package beside it) it exits
-non-zero and prints no result.
+Prints the dispatcher stats, K2's device time per packet round, the hash
+core's SASS instructions per round (``cuobjdump``, where the toolkit has
+it), one ``kernels`` JSON line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Kernel times are medians of 7 samples
+of 5 back-to-back calls each. Needs one CUDA card; without one (or
+without the package beside it) it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -86,8 +94,11 @@ def bound(read_b: int, write_b: int, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cuda_ms(torch, fn, reps: int = 7, warm: int = 1) -> float:
-    """Median CUDA-event time of fn() over reps runs, after warm-up."""
+def cuda_ms(torch, fn, reps: int = 7, warm: int = 1, inner: int = 1) -> float:
+    """Median CUDA-event time of one fn() call over reps samples, after
+    warm-up. A sample times ``inner`` calls back to back and divides, so
+    that the host's submission of the first call is not counted as device
+    time more than once (kernels take ``inner=5``)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -96,10 +107,11 @@ def cuda_ms(torch, fn, reps: int = 7, warm: int = 1) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
@@ -112,6 +124,44 @@ def timed_once(torch, fn):
     b.record()
     b.synchronize()
     return out, a.elapsed_time(b)
+
+
+def sass_per_round(so: str, kernel: str):
+    """Instructions per packet round of the hash core's hot loop, read from
+    ``cuobjdump -sass`` of the library ``so``: in the function whose name
+    holds ``kernel``, the smallest loop (a backward branch and its target)
+    that reads shared memory, waits on no barrier and holds 8 or more
+    32x32->64 multiplies, of which a round has 4 (2 lanes x 2). None where
+    the toolkit has no cuobjdump."""
+    import re
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                          timeout=120).stdout
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        ins = [(int(a, 16), t.strip())
+               for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+        loops = []
+        for addr, text in ins:
+            br = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+            if br and int(br.group(1), 16) <= addr:
+                body = [t for a, t in ins if int(br.group(1), 16) <= a <= addr]
+                muls = sum(t.startswith("IMAD.WIDE.U32") for t in body)
+                ring = any(t.startswith("LDS") for t in body) and \
+                    not any(t.startswith("SYNCS") for t in body)
+                if ring and muls >= 8 and muls % 4 == 0:
+                    loops.append((len(body), muls // 4))
+        if loops:
+            n_ins, rounds = min(loops)
+            return {"kernel": name, "loop_instructions": n_ins, "rounds": rounds,
+                    "per_round": n_ins / rounds}
+    return None
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -191,8 +241,15 @@ def check_k1(torch, mods, g, key, timed: bool) -> dict:
             fail(f"K1 {shape_name(key)}: digests differ from numpy HighwayHash at block {bi}")
     res = {"max_abs_err": err}
     if timed:
+        # K1's first launch alone (fused_gf_apply), on the same tables
+        tables = (fc._encode_tables(d, p, str(dev)) if key[0] == "encode"
+                  else fc._decode_tables(d, p, present, missing, str(dev)))
+        gf_only = lambda: fc.gf_apply_only(x, tables, r)  # noqa: E731
+        if not torch.equal(gf_only(), out):
+            fail(f"K1 {shape_name(key)}: the GF launch alone differs from the fused output")
         bms, by = k1_bound(b, d, r, n)
-        res.update(ms=cuda_ms(torch, run), plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        res.update(ms=cuda_ms(torch, run, inner=5), plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   gf_ms=cuda_ms(torch, gf_only, inner=5))
     return res
 
 
@@ -204,15 +261,38 @@ def check_k2(torch, mods, g, rows: int, n: int, timed: bool) -> dict:
     torch.cuda.synchronize()
     want, plain_ms = timed_once(torch, lambda: bt.hash256_blocks_plain(y))
     err = max_abs_err(torch, got, want)
-    idx = sorted({0, 1, rows - 1}) if rows else []
+    idx = sorted({i for i in (0, 1, rows - 1) if 0 <= i < rows})
     if idx and not (hh.hash256_batch_numpy(y[idx].cpu().numpy()) == got[idx].cpu().numpy()).all():
         fail(f"K2 digests differ from numpy HighwayHash at rows={rows} n={n}")
     res = {"max_abs_err": err}
     if timed:
         bms, by = bound(rows * n, rows * 32, rows * -(-n // 32) * HASH_OPS_PER_PACKET)
-        res.update(ms=cuda_ms(torch, lambda: bc.hash256_blocks(y)), plain_ms=plain_ms,
+        res.update(ms=cuda_ms(torch, lambda: bc.hash256_blocks(y), inner=5), plain_ms=plain_ms,
                    bound_ms=bms, bound_by=by)
     return res
+
+
+def check_k2_offsets(torch, mods, g, n: int, rows: int = 4) -> dict:
+    """K2 untimed on rows of n bytes starting at each offset 0-15 from a
+    16-byte boundary, each placement's last row ending at its buffer's
+    last byte; byte for byte against the plain version, which runs once
+    over all placements' rows, and a sample against numpy."""
+    bc, bt, hh = mods["bc"], mods["bt"], mods["hh"]
+    dev = torch.device(DEV)
+    xs, got = [], []
+    for off in range(16):
+        buf = torch.randint(0, 256, (off + rows * n,), dtype=torch.uint8, device=dev, generator=g)
+        xs.append(buf[off:].view(rows, n))
+        got.append(bc.hash256_blocks(xs[-1]))
+    if sorted(x.data_ptr() % 16 for x in xs) != list(range(16)):
+        fail(f"K2 offsets n={n}: rows did not start at every offset 0-15")
+    torch.cuda.synchronize()
+    got = torch.cat(got)
+    err = max_abs_err(torch, got, bt.hash256_blocks_plain(torch.cat(xs)))
+    sample = torch.cat([xs[0][:1], xs[15][-1:]]).cpu().numpy()
+    if not (hh.hash256_batch_numpy(sample) == got[[0, 16 * rows - 1]].cpu().numpy()).all():
+        fail(f"K2 offsets n={n}: digests differ from numpy HighwayHash")
+    return {"max_abs_err": err}
 
 
 def check_k3(torch, mods, g, key, timed: bool) -> dict:
@@ -247,7 +327,7 @@ def check_k3(torch, mods, g, key, timed: bool) -> dict:
         bms, by = bound(b * kc * h, b * r * h, b * r * kc * h)
         u = x.reshape(b, d, 2, h).transpose(1, 2).reshape(b, kc, h).contiguous()
         wf = torch.from_numpy(w.astype(np.float32)).to(dev)
-        res.update(ms=cuda_ms(torch, run), plain_ms=cuda_ms(torch, plain, reps=5),
+        res.update(ms=cuda_ms(torch, run, inner=5), plain_ms=cuda_ms(torch, plain, reps=5),
                    bound_ms=bms, bound_by=by,
                    library_ms=cuda_ms(torch, lambda: rt.gf_apply_bits(wf, u, r), reps=5))
     return res
@@ -283,8 +363,9 @@ def shape_name(key) -> str:
 
 def kernel_phase(torch, mods, shapes: dict) -> dict:
     """Every kernel at every shape the main path gave it (``shapes``:
-    kernel -> {shape key: launches}), plus the loss patterns and K2's odd
-    lengths. Returns, per kernel, the shape that moved the most bytes on
+    kernel -> {shape key: launches}), plus the single chain, the
+    alignment pair, the loss patterns, and K2's odd lengths and row
+    offsets. Returns, per kernel, the shape that moved the most bytes on
     the main path (its times go into the ``kernels`` line) and the
     per-shape results."""
     g = torch.Generator(device=torch.device(DEV)).manual_seed(SEED)
@@ -312,9 +393,27 @@ def kernel_phase(torch, mods, shapes: dict) -> dict:
             per.append(r)
             print(f"{name} {r['shape']}: launches={launches} err={r['max_abs_err']} "
                   f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f}"
-                  + (f" library_ms={r['library_ms']:.4f}" if "library_ms" in r else ""),
+                  + (f" library_ms={r['library_ms']:.4f}" if "library_ms" in r else "")
+                  + (f" gf_ms={r['gf_ms']:.4f}" if "gf_ms" in r else ""),
                   flush=True)
         res[name] = {"main": per[0], "shapes": per}
+
+    # one chain alone: the per-chain floor that no batch can beat
+    r = check_k2(torch, mods, g, 1, 131072, timed=True)
+    r.update(shape="single chain: rows=1 n=131072", launches=None)
+    res["hh_chain"]["shapes"].append(r)
+    print(f"hh_chain {r['shape']}: err={r['max_abs_err']} ms={r['ms']:.4f} "
+          f"plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f}", flush=True)
+    # the alignment pair, whatever shapes the batching gave this run:
+    # 16-byte aligned rows (cauchy 8+8 sub-chunks) and rows at odd
+    # addresses (cauchy 12+4), 8,192 of each; and aligned rows of the odd
+    # rows' whole-packet length, which tells length from alignment
+    for n in (65536, -(-MIB // 12) // 2, (-(-MIB // 12) // 2) & ~31):
+        r = check_k2(torch, mods, g, 8192, n, timed=True)
+        r.update(shape=f"alignment pair: rows=8192 n={n}", launches=None)
+        res["hh_chain"]["shapes"].append(r)
+        print(f"hh_chain {r['shape']}: err={r['max_abs_err']} ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f}", flush=True)
 
     # the three loss patterns at the degraded GETs' batch, and K2 at odd
     # lengths (rows starting at every alignment, the last ending at its
@@ -325,6 +424,9 @@ def kernel_phase(torch, mods, shapes: dict) -> dict:
         extra.append(("fused_decode_hash", shape_name(key), check_k1(torch, mods, g, key, False)))
     for nn in (0, 1, 31, 32, 33, 34, 38, 65, 95):
         extra.append(("hh_chain", f"rows=1000 n={nn}", check_k2(torch, mods, g, 1000, nn, False)))
+    for nn in (31, 32, 33, 65536, 87382):
+        extra.append(("hh_chain", f"rows=4 n={nn} offsets 0-15",
+                      check_k2_offsets(torch, mods, g, nn)))
     for nn in (1, 15, 17, 511, 43691):
         for k, r in ((5, 3), (24, 8)):
             extra.append(("gf_apply", f"binary {8 * r}x{8 * k} B=3 n={nn} offsets 0-3",
@@ -708,6 +810,17 @@ def main(argv: list[str]) -> int:
             k: cph[k] for k in ("launches", "lone_put_launches", "stats", "family_stats",
                                 "repair", "seconds", "total_bytes")}}))
     print(json.dumps({"kernel_shapes": {k: v["shapes"] for k, v in kres.items()}}))
+    # K2's device time per packet round (n/32 rounds a message), and the
+    # hash core's instructions per round in the hot loop
+    rounds = {r["shape"]: r["ms"] * 1e6 / (int(r["shape"].rsplit("n=", 1)[1]) // 32)
+              for r in kres["hh_chain"]["shapes"] if "ms" in r}
+    aligned, odd, same = (rounds[f"alignment pair: rows=8192 n={n}"] for n in (
+        65536, -(-MIB // 12) // 2, (-(-MIB // 12) // 2) & ~31))
+    print(json.dumps({"k2_ns_per_round": rounds, "unaligned_over_aligned": odd / aligned,
+                      "unaligned_over_aligned_same_length": odd / same}))
+    print(json.dumps({"sass_per_round": {
+        name: sass_per_round(os.path.join(_build.BUILD, f"lib{name}.so"), rows)
+        for name, rows in (("hh_chain", "ContigRows"), ("fused_encode_hash", "FusedRows"))}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

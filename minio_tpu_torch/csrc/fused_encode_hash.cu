@@ -9,27 +9,29 @@
 // over. The contract kept is the bytes: data [B, d, n] in, outputs
 // [B, p, n] and digests [B, d+p, 32] out, with the reference's row order.
 //
-// Two launches behind one C entry point, on one stream:
-//  1. gf_apply: each thread takes 16 bytes of one column range of one
-//     stripe block, loads them from all d input rows (16-byte loads,
-//     neighbouring threads on neighbouring addresses) and XORs the p
-//     output rows out of the p x d x 256 product tables, which the
-//     wrapper builds on the host per matrix and this kernel stages in
-//     shared memory (16 KiB at 8+8).
-//  2. fused_hash: one thread per shard runs highwayhash.cuh over input
-//     row j < d or output row j - d.
+// Two launches on one stream:
+//  1. gf_apply (C entry fused_gf_apply, also timed alone): each thread
+//     takes 16 bytes of one column range of one stripe block, loads them
+//     from all d input rows (16-byte loads, neighbouring threads on
+//     neighbouring addresses) and XORs the p output rows out of the
+//     p x d x 256 product tables, which the wrapper builds on the host
+//     per matrix and this kernel stages in shared memory (16 KiB at 8+8).
+//  2. the hash core (hh_core.cuh) over the B*(d+p) shards: shard s of
+//     block b = s / (d+p) is input row j = s mod (d+p) when j < d, else
+//     output row j - d.
 //
 // Bound on the H100: bytes — read B*d*n, write B*p*n + 32*B*(d+p),
-// about 0.15 ms at B = 192, 8+8, n = 128 KiB. The GF pass runs near the
-// memory rate; the hash does not: its only parallelism is the B*(d+p)
-// shards (3,072 at B = 192), each a serial chain of n/32 = 4,096 packet
-// rounds, so it occupies a few warps per SM and runs at the latency of
-// one round's dependent 64-bit arithmetic. That is what bounds this
-// kernel today; splitting each shard's chain is later work.
+// about 0.16 ms at B = 256, 8+8, n = 128 KiB; the hash re-reads all
+// d+p rows, mostly from L2 right after the GF pass wrote the outputs.
+// The chain bounds the hash from below: n/32 = 4,096 serial rounds per
+// shard, whatever B. The core runs each shard on two threads (one per
+// lane pair) with its packets fed from a TMA-filled shared-memory ring,
+// so a round costs its arithmetic, not a device-memory wait. Fusing the
+// GF pass into the hash's producer is later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "highwayhash.cuh"
+#include "hh_core.cuh"
 
 #define MAX_SHARDS 8
 
@@ -70,45 +72,48 @@ __global__ void gf_apply_kernel(const uint8_t* __restrict__ in, int d, int p,
   }
 }
 
-__global__ void fused_hash_kernel(const uint8_t* __restrict__ in,
-                                  const uint8_t* __restrict__ out, int64_t B,
-                                  int d, int p, int64_t n, uint64_t k0,
-                                  uint64_t k1, uint64_t k2, uint64_t k3,
-                                  uint8_t* __restrict__ digests) {
-  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int t = d + p;
-  if (s >= B * t) return;
-  const int64_t b = s / t;
-  const int j = (int)(s % t);
-  const uint8_t* msg = j < d ? in + (b * d + j) * n : out + (b * p + (j - d)) * n;
-  const uint64_t key[4] = {k0, k1, k2, k3};
-  hh256_msg(msg, n, key, digests + s * 32);
-}
+// shard s -> its first byte: input row j < d, else output row j - d
+struct FusedRows {
+  const uint8_t* in;
+  const uint8_t* out;
+  int d, p;
+  int64_t n;
+  __device__ __forceinline__ const uint8_t* operator()(int64_t s) const {
+    const int t = d + p;
+    const int64_t b = s / t;
+    const int j = (int)(s - b * t);
+    return j < d ? in + (b * d + j) * n : out + (b * p + (j - d)) * n;
+  }
+};
 
 // data: [B, d, n] u8; tables: [p, d, 256] u8 (tables[i][j][x] =
-// gf_mul(m[i][j], x)); out: [B, p, n] u8; digests: [B, d+p, 32] u8.
-// Needs 1 <= d, p <= 8 and n % 16 == 0 (the wrapper's gate is stricter).
-// Returns the first non-zero cudaError_t of the two launches.
-extern "C" int fused_encode_hash(const void* data, int64_t B, int d, int p,
-                                 int64_t n, const void* tables, uint64_t k0,
-                                 uint64_t k1, uint64_t k2, uint64_t k3,
-                                 void* out, void* digests, void* stream) {
-  if (B <= 0) return 0;
-  if (d < 1 || d > MAX_SHARDS || p < 1 || p > MAX_SHARDS || n % 16 != 0)
+// gf_mul(m[i][j], x)); out: [B, p, n] u8. Needs 1 <= d, p <= 8 and
+// n % 16 == 0 (the wrapper's gate is stricter). The GF launch alone.
+extern "C" int fused_gf_apply(const void* data, int64_t B, int d, int p, int64_t n,
+                              const void* tables, void* out, void* stream) {
+  if (d < 1 || d > MAX_SHARDS || p < 1 || p > MAX_SHARDS || n < 0 || n % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+  if (B <= 0 || n == 0) return 0;
   const int threads = 256;
-  if (n > 0) {
-    const dim3 grid((unsigned)((n / 16 + threads - 1) / threads), (unsigned)B);
-    gf_apply_kernel<<<grid, threads, p * d * 256, st>>>(
-        (const uint8_t*)data, d, p, n, (const uint8_t*)tables, (uint8_t*)out);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int hthreads = 128;
-  const int64_t shards = B * (d + p);
-  fused_hash_kernel<<<(unsigned)((shards + hthreads - 1) / hthreads), hthreads, 0, st>>>(
-      (const uint8_t*)data, (const uint8_t*)out, B, d, p, n, k0, k1, k2, k3,
-      (uint8_t*)digests);
+  const dim3 grid((unsigned)((n / 16 + threads - 1) / threads), (unsigned)B);
+  gf_apply_kernel<<<grid, threads, p * d * 256, (cudaStream_t)stream>>>(
+      (const uint8_t*)data, d, p, n, (const uint8_t*)tables, (uint8_t*)out);
   return (int)cudaGetLastError();
+}
+
+// As fused_gf_apply, then digests: [B, d+p, 32] u8 of every shard.
+// msgs_per_cta .. smem_bytes: the hash core's launch plan for B*(d+p)
+// messages of n bytes (ops/bitrot_cuda.plan). Returns the first non-zero
+// cudaError_t of the two launches.
+extern "C" int fused_encode_hash(const void* data, int64_t B, int d, int p, int64_t n,
+                                 const void* tables, uint64_t k0, uint64_t k1, uint64_t k2,
+                                 uint64_t k3, void* out, void* digests, int64_t msgs_per_cta,
+                                 int64_t stages, int64_t stage_bytes, int64_t slot_bytes,
+                                 int64_t smem_bytes, void* stream) {
+  if (B <= 0) return 0;
+  const int e = fused_gf_apply(data, B, d, p, n, tables, out, stream);
+  if (e != 0) return e;
+  const FusedRows rows = {(const uint8_t*)data, (const uint8_t*)out, d, p, n};
+  return hh_ring_launch(rows, B * (d + p), n, k0, k1, k2, k3, (uint8_t*)digests, msgs_per_cta,
+                        stages, stage_bytes, slot_bytes, smem_bytes, (cudaStream_t)stream);
 }

@@ -1,46 +1,39 @@
-// K2: HighwayHash-256 of B equal-length messages, one thread per message.
+// K2: HighwayHash-256 of `rows` equal-length messages, contiguous.
 //
 // Replaces the Pallas chain kernel minio_tpu/ops/bitrot_pallas.py
 // (_chain_kernel, entered by hash256_blocks_pallas). The TPU kernel ran
 // only the whole-packet chain, with the state in VMEM across a
 // sequential grid, and left the tail packet and finalization to XLA.
-// Here each thread runs the whole hash of its message: whole packets,
-// remainder, 10 finalization rounds and the modular reduction
-// (highwayhash.cuh), for any n >= 0 and any row count.
+// Here the hash core (hh_core.cuh) runs the whole hash of each message:
+// whole packets, remainder, 10 finalization rounds and the modular
+// reduction, for any n >= 0, any row count and any row start.
 //
-// Bound on the H100: the bytes are n*B read once plus 32*B written, a
-// few tenths of a millisecond at the main path's shapes. The kernel is
-// far from that: the hash is a serial chain of n/32 packet rounds per
-// message, so the only parallelism is B threads (2,048 at EC 12+4 with
-// 128 stripe blocks) — fewer than one warp per SM scheduler — and each
-// round's dependent 64-bit multiplies and shifts set the pace. The
-// design keeps the chain in registers and reads each 32-byte packet as
-// four 8-byte loads; splitting messages across threads is later work.
+// Bound on the H100: bytes, rows x n read once plus 32 x rows written
+// (0.16 ms at 8,192 rows of 65,536 bytes), and the chain: n/32 serial
+// packet rounds per message. The core's design answers both (see
+// hh_core.cuh): two threads per message halve each round's dependent
+// work, and packets arrive through a TMA-filled shared-memory ring
+// several stages ahead, so rounds no longer wait on device memory and
+// unaligned rows cost what aligned ones do.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "highwayhash.cuh"
+#include "hh_core.cuh"
 
-__global__ void hh_chain_kernel(const uint8_t* __restrict__ msgs, int64_t rows,
-                                int64_t n, uint64_t k0,
-                                uint64_t k1, uint64_t k2, uint64_t k3,
-                                uint8_t* __restrict__ out) {
-  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  const uint64_t key[4] = {k0, k1, k2, k3};
-  hh256_msg(msgs + row * n, n, key, out + row * 32);
-}
+struct ContigRows {
+  const uint8_t* base;
+  int64_t n;
+  __device__ __forceinline__ const uint8_t* operator()(int64_t i) const { return base + i * n; }
+};
 
-// msgs: rows x n bytes, contiguous; out: rows x 32.
+// msgs: rows x n bytes, contiguous (any start address); out: rows x 32.
+// msgs_per_cta .. smem_bytes: the launch plan (ops/bitrot_cuda.plan).
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int hh_chain(const void* msgs, int64_t rows, int64_t n,
-                        uint64_t k0, uint64_t k1,
-                        uint64_t k2, uint64_t k3, void* out, void* stream) {
-  if (rows <= 0) return 0;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((rows + threads - 1) / threads);
-  hh_chain_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)msgs, rows, n, k0, k1, k2, k3,
-      (uint8_t*)out);
-  return (int)cudaGetLastError();
+extern "C" int hh_chain(const void* msgs, int64_t rows, int64_t n, uint64_t k0, uint64_t k1,
+                        uint64_t k2, uint64_t k3, void* out, int64_t msgs_per_cta,
+                        int64_t stages, int64_t stage_bytes, int64_t slot_bytes,
+                        int64_t smem_bytes, void* stream) {
+  const ContigRows r = {(const uint8_t*)msgs, n};
+  return hh_ring_launch(r, rows, n, k0, k1, k2, k3, (uint8_t*)out, msgs_per_cta, stages,
+                        stage_bytes, slot_bytes, smem_bytes, (cudaStream_t)stream);
 }

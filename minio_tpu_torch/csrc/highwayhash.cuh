@@ -1,170 +1,137 @@
-// HighwayHash-256 for one message per thread, shared by the chain kernel
-// (hh_chain.cu, K2) and the fused encode/decode kernel
-// (fused_encode_hash.cu, K1).
+// HighwayHash-256 on one lane pair: the algorithm of the hash core
+// (hh_core.cuh), which K2 (hh_chain.cu) and K1 (fused_encode_hash.cu)
+// share.
 //
 // The same algorithm as ops/highwayhash.py (the numpy reference), with
 // native 64-bit lanes: the TPU kernels split every lane into 32-bit
 // halves, CUDA does not need to. The multiply is the 32x32 -> 64 product
-// (mul.wide.u32), the zipper merge plain shifts and masks.
+// (mul.wide.u32), the zipper merge six byte permutes.
 //
-// hh256_msg walks one message: whole 32-byte packets, the remainder
-// packet, the 10 finalization rounds and the modular reduction, and
-// writes the 32-byte digest. Loads are 8-byte words from the aligned
-// address at or below the message start, funnel-shifted when the message
-// is not 8-byte aligned (rows of odd-sized shards, e.g. 87,382 bytes at
-// EC 12+4). The first word starts at most 7 bytes before the message, in
-// the same aligned word as its first byte; the last word is loaded whole
-// only when it ends within the message, else its bytes are gathered one
-// at a time, so no read passes the message's last byte.
+// The state is split by lane pair. In a whole-packet round (hh_update)
+// lanes 0-1 and lanes 2-3 never exchange a value: each lane's update is
+// its own, and each zipper merge stays inside its pair. So one thread
+// per pair (q = 0: lanes 0-1, q = 1: lanes 2-3) runs the packet chain on
+// 16 of every 32 bytes with no communication. The pairs meet only in
+// finalization: each permutation round feeds a pair the other pair's v0
+// (hh_finalize, one warp shuffle between partner lanes), and each
+// 128-bit half of the digest reduces one pair.
 #pragma once
 #include <stdint.h>
 
-struct HHState {
-  uint64_t v0[4], v1[4], mul0[4], mul1[4];
+struct HHPair {
+  uint64_t v0[2], v1[2], mul0[2], mul1[2];
 };
-
-static __device__ __forceinline__ void hh_reset(HHState& s, const uint64_t key[4]) {
-  const uint64_t init0[4] = {0xdbe6d5d5fe4cce2full, 0xa4093822299f31d0ull,
-                             0x13198a2e03707344ull, 0x243f6a8885a308d3ull};
-  const uint64_t init1[4] = {0x3bd39e10cb0ef593ull, 0xc0acf169b5f18a8cull,
-                             0xbe5466cf34e90c6cull, 0x452821e638d01377ull};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    s.mul0[i] = init0[i];
-    s.mul1[i] = init1[i];
-    s.v0[i] = init0[i] ^ key[i];
-    s.v1[i] = init1[i] ^ ((key[i] >> 32) | (key[i] << 32));
-  }
-}
-
-static __device__ __forceinline__ void hh_zipper_merge_add(
-    uint64_t v1, uint64_t v0, uint64_t& add1, uint64_t& add0) {
-  add0 += (((v0 & 0xff000000ull) | (v1 & 0xff00000000ull)) >> 24) |
-          (((v0 & 0xff0000000000ull) | (v1 & 0xff000000000000ull)) >> 16) |
-          (v0 & 0xff0000ull) | ((v0 & 0xff00ull) << 32) |
-          ((v1 & 0xff00000000000000ull) >> 8) | (v0 << 56);
-  add1 += (((v1 & 0xff000000ull) | (v0 & 0xff00000000ull)) >> 24) |
-          (v1 & 0xff0000ull) | ((v1 & 0xff0000000000ull) >> 16) |
-          ((v1 & 0xff00ull) << 24) | ((v0 & 0xff000000000000ull) >> 8) |
-          ((v1 & 0xffull) << 48) | (v0 & 0xff00000000000000ull);
-}
-
-static __device__ __forceinline__ void hh_update(HHState& s, const uint64_t a[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    s.v1[i] += s.mul0[i] + a[i];
-    s.mul0[i] ^= (s.v1[i] & 0xffffffffull) * (s.v0[i] >> 32);
-    s.v0[i] += s.mul1[i];
-    s.mul1[i] ^= (s.v0[i] & 0xffffffffull) * (s.v1[i] >> 32);
-  }
-  hh_zipper_merge_add(s.v1[1], s.v1[0], s.v0[1], s.v0[0]);
-  hh_zipper_merge_add(s.v1[3], s.v1[2], s.v0[3], s.v0[2]);
-  hh_zipper_merge_add(s.v0[1], s.v0[0], s.v1[1], s.v1[0]);
-  hh_zipper_merge_add(s.v0[3], s.v0[2], s.v1[3], s.v1[2]);
-}
 
 static __device__ __forceinline__ uint64_t hh_rot32(uint64_t x) {
   return (x >> 32) | (x << 32);
 }
 
-// size in (0, 32): the remainder bytes of a message
+// lanes 2q, 2q+1 of the keyed initial state
+static __device__ __forceinline__ void hh_reset(HHPair& s, const uint64_t key[4], int q) {
+  const uint64_t init0[4] = {0xdbe6d5d5fe4cce2full, 0xa4093822299f31d0ull,
+                             0x13198a2e03707344ull, 0x243f6a8885a308d3ull};
+  const uint64_t init1[4] = {0x3bd39e10cb0ef593ull, 0xc0acf169b5f18a8cull,
+                             0xbe5466cf34e90c6cull, 0x452821e638d01377ull};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint64_t i0 = q ? init0[2 + i] : init0[i];
+    const uint64_t i1 = q ? init1[2 + i] : init1[i];
+    const uint64_t k = q ? key[2 + i] : key[i];
+    s.mul0[i] = i0;
+    s.mul1[i] = i1;
+    s.v0[i] = i0 ^ k;
+    s.v1[i] = i1 ^ hh_rot32(k);
+  }
+}
+
+// The zipper merge is a byte permutation of the 16 bytes of (v1, v0).
+// With a0..a7 the bytes of v0 and b0..b7 those of v1 (least significant
+// first), add0 gets [a3 b4 a2 a5 | b6 a1 b7 a0] and add1
+// [b3 a4 b2 b5 | b1 a6 b0 a7], so each 32-bit half is one or two byte
+// permutes (PRMT) where masks and shifts took some 25 instructions.
+static __device__ __forceinline__ void hh_zipper_merge_add(
+    uint64_t v1, uint64_t v0, uint64_t& add1, uint64_t& add0) {
+  const uint32_t a_lo = (uint32_t)v0, a_hi = (uint32_t)(v0 >> 32);
+  const uint32_t b_lo = (uint32_t)v1, b_hi = (uint32_t)(v1 >> 32);
+  const uint32_t z0lo = __byte_perm(__byte_perm(a_lo, b_hi, 0x0243), a_hi, 0x5210);
+  const uint32_t z0hi = __byte_perm(a_lo, b_hi, 0x0716);
+  const uint32_t z1lo = __byte_perm(__byte_perm(b_lo, a_hi, 0x0243), b_hi, 0x5210);
+  const uint32_t z1hi = __byte_perm(b_lo, a_hi, 0x7061);
+  add0 += ((uint64_t)z0hi << 32) | z0lo;
+  add1 += ((uint64_t)z1hi << 32) | z1lo;
+}
+
+// lo32(x) * hi32(y), the 32x32 -> 64 product of a lane update. Written
+// as mul.wide.u32: as a 64-bit C product of masked operands the compiler
+// kept the zero cross terms as extra adds.
+static __device__ __forceinline__ uint64_t hh_mul32(uint64_t x, uint64_t y) {
+  uint64_t p;
+  asm("mul.wide.u32 %0, %1, %2;" : "=l"(p) : "r"((uint32_t)x), "r"((uint32_t)(y >> 32)));
+  return p;
+}
+
+// One HighwayHash round on a lane pair: a = the pair's two 8-byte packet
+// words (packet words 2q, 2q+1). The whole-state round is this on both
+// pairs.
+static __device__ __forceinline__ void hh_update(HHPair& s, const uint64_t a[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    s.v1[i] += s.mul0[i] + a[i];
+    s.mul0[i] ^= hh_mul32(s.v1[i], s.v0[i]);
+    s.v0[i] += s.mul1[i];
+    s.mul1[i] ^= hh_mul32(s.v0[i], s.v1[i]);
+  }
+  hh_zipper_merge_add(s.v1[1], s.v1[0], s.v0[1], s.v0[0]);
+  hh_zipper_merge_add(s.v0[1], s.v0[0], s.v1[1], s.v1[0]);
+}
+
+// The remainder packet: size in (0, 32) bytes at `bytes`. Both threads of
+// a message assemble the whole padded packet; each takes its pair's half.
 static __device__ __forceinline__ void hh_update_remainder(
-    HHState& s, const uint8_t* __restrict__ bytes, int size) {
+    HHPair& s, const uint8_t* __restrict__ bytes, int size, int q) {
   const int whole4 = size & ~3;
   const int size4 = size & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 2; ++i) {
     s.v0[i] += ((uint64_t)size << 32) + (uint64_t)size;
     uint32_t lo = (uint32_t)s.v1[i], hi = (uint32_t)(s.v1[i] >> 32);
     lo = (lo << size) | (lo >> (32 - size));
     hi = (hi << size) | (hi >> (32 - size));
     s.v1[i] = ((uint64_t)hi << 32) | lo;
   }
-  uint8_t packet[32];
+  uint64_t w[4] = {0, 0, 0, 0};
 #pragma unroll
-  for (int k = 0; k < 32; ++k) packet[k] = 0;
-  for (int k = 0; k < whole4; ++k) packet[k] = bytes[k];
+  for (int k = 0; k < 28; ++k)  // whole4 <= 28
+    if (k < whole4) w[k >> 3] |= (uint64_t)bytes[k] << (8 * (k & 7));
   if (size & 16) {
-    for (int k = 0; k < 4; ++k) packet[28 + k] = bytes[size - 4 + k];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[3] |= (uint64_t)bytes[size - 4 + k] << (8 * (4 + k));
   } else if (size4) {
-    packet[16] = bytes[whole4];
-    packet[17] = bytes[whole4 + (size4 >> 1)];
-    packet[18] = bytes[whole4 + size4 - 1];
+    w[2] |= (uint64_t)bytes[whole4] | ((uint64_t)bytes[whole4 + (size4 >> 1)] << 8) |
+            ((uint64_t)bytes[whole4 + size4 - 1] << 16);
   }
-  uint64_t a[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint64_t v = 0;
-#pragma unroll
-    for (int k = 7; k >= 0; --k) v = (v << 8) | packet[8 * i + k];
-    a[i] = v;
-  }
+  const uint64_t a[2] = {q ? w[2] : w[0], q ? w[3] : w[1]};
   hh_update(s, a);
 }
 
-static __device__ __forceinline__ void hh_finalize(HHState& s, uint8_t* __restrict__ out) {
+// The 10 permutation rounds and the modular reduction. The permuted
+// packet of the whole state is rot32 of v0 lanes (2, 3, 0, 1): pair q's
+// half is the partner pair's v0, fetched from the partner lane (lane ^ 1,
+// in `mask`). Each thread writes its pair's 16 bytes of the digest.
+static __device__ __forceinline__ void hh_finalize(HHPair& s, unsigned mask,
+                                                   uint8_t* __restrict__ out, int q) {
   for (int r = 0; r < 10; ++r) {
-    const uint64_t p[4] = {hh_rot32(s.v0[2]), hh_rot32(s.v0[3]),
-                           hh_rot32(s.v0[0]), hh_rot32(s.v0[1])};
+    const uint64_t o0 = __shfl_xor_sync(mask, (unsigned long long)s.v0[0], 1);
+    const uint64_t o1 = __shfl_xor_sync(mask, (unsigned long long)s.v0[1], 1);
+    const uint64_t p[2] = {hh_rot32(o0), hh_rot32(o1)};
     hh_update(s, p);
   }
-  uint64_t words[4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int half = 2 * h;
-    const uint64_t a0 = s.v0[half] + s.mul0[half];
-    const uint64_t a1 = s.v0[half + 1] + s.mul0[half + 1];
-    const uint64_t a2 = s.v1[half] + s.mul1[half];
-    const uint64_t a3 = (s.v1[half + 1] + s.mul1[half + 1]) & 0x3fffffffffffffffull;
-    words[2 * h + 1] = a1 ^ ((a3 << 1) | (a2 >> 63)) ^ ((a3 << 2) | (a2 >> 62));
-    words[2 * h] = a0 ^ (a2 << 1) ^ (a2 << 2);
-  }
-  // 32-byte aligned digest slot: four little-endian 8-byte stores
-  uint64_t* o = reinterpret_cast<uint64_t*>(out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) o[i] = words[i];
-}
-
-static __device__ __forceinline__ void hh256_msg(
-    const uint8_t* __restrict__ msg, int64_t n, const uint64_t key[4],
-    uint8_t* __restrict__ out) {
-  HHState s;
-  hh_reset(s, key);
-  const int64_t whole = n & ~(int64_t)31;
-  if (whole > 0) {
-    const unsigned r = (unsigned)((uintptr_t)msg & 7);
-    const uint64_t* w = reinterpret_cast<const uint64_t*>(msg - r);
-    if (r == 0) {
-      for (int64_t k = 0; k < whole / 8; k += 4) {
-        const uint64_t a[4] = {__ldg(w + k), __ldg(w + k + 1),
-                               __ldg(w + k + 2), __ldg(w + k + 3)};
-        hh_update(s, a);
-      }
-    } else {
-      const unsigned sr = 8 * r, sl = 64 - 8 * r;
-      const int64_t words = whole / 8;
-      // the last packet's look-ahead word would reach past byte n: its r
-      // needed bytes (the packets' last ones) are gathered one by one
-      const bool tail_short = whole + 8 - (int64_t)r > n;
-      uint64_t prev = __ldg(w);
-      for (int64_t k = 0; k < words; k += 4) {
-        const uint64_t w1 = __ldg(w + k + 1), w2 = __ldg(w + k + 2);
-        const uint64_t w3 = __ldg(w + k + 3);
-        uint64_t w4;
-        if (k + 4 < words || !tail_short) {
-          w4 = __ldg(w + k + 4);
-        } else {
-          w4 = 0;
-          for (unsigned j = 0; j < r; ++j) w4 |= (uint64_t)msg[whole - r + j] << (8 * j);
-        }
-        const uint64_t a[4] = {(prev >> sr) | (w1 << sl), (w1 >> sr) | (w2 << sl),
-                               (w2 >> sr) | (w3 << sl), (w3 >> sr) | (w4 << sl)};
-        prev = w4;
-        hh_update(s, a);
-      }
-    }
-  }
-  const int rem = (int)(n - whole);
-  if (rem) hh_update_remainder(s, msg + whole, rem);
-  hh_finalize(s, out);
+  const uint64_t a0 = s.v0[0] + s.mul0[0];
+  const uint64_t a1 = s.v0[1] + s.mul0[1];
+  const uint64_t a2 = s.v1[0] + s.mul1[0];
+  const uint64_t a3 = (s.v1[1] + s.mul1[1]) & 0x3fffffffffffffffull;
+  const uint64_t m1 = a1 ^ ((a3 << 1) | (a2 >> 63)) ^ ((a3 << 2) | (a2 >> 62));
+  const uint64_t m0 = a0 ^ (a2 << 1) ^ (a2 << 2);
+  // 32-byte aligned digest slot: the pair's half is one 16-byte store
+  if (out) *reinterpret_cast<ulonglong2*>(out + 16 * q) = make_ulonglong2(m0, m1);
 }

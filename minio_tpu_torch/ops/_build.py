@@ -34,17 +34,21 @@ _U64 = ctypes.c_uint64
 # truncates them to 32-bit ints
 SIGNATURES = {
     "hh_chain": {
-        # (msgs, rows, n, k0..k3, out, stream)
-        "hh_chain": [_P, _I64, _I64, _U64, _U64, _U64, _U64, _P, _P],
+        # (msgs, rows, n, k0..k3, out, plan: msgs_per_cta, stages,
+        #  stage_bytes, slot_bytes, smem_bytes, stream)
+        "hh_chain": [_P, _I64, _I64, _U64, _U64, _U64, _U64, _P, *[_I64] * 5, _P],
     },
     "gf_apply": {
         # (in, in_bs, out, out_bs, B, k, r, n, tables, offs, stream)
         "gf_apply": [_P, _I64, _P, _I64, _I64, _I, _I, _I64, _P, _P, _P],
     },
     "fused_encode_hash": {
-        # (data, B, d, p, n, tables, k0..k3, out, digests, stream)
+        # (data, B, d, p, n, tables, k0..k3, out, digests, plan: msgs_per_cta,
+        #  stages, stage_bytes, slot_bytes, smem_bytes, stream)
         "fused_encode_hash": [_P, _I64, _I, _I, _I64, _P,
-                              _U64, _U64, _U64, _U64, _P, _P, _P],
+                              _U64, _U64, _U64, _U64, _P, _P, *[_I64] * 5, _P],
+        # (data, B, d, p, n, tables, out, stream): the GF launch alone
+        "fused_gf_apply": [_P, _I64, _I, _I, _I64, _P, _P, _P],
     },
 }
 

@@ -2,16 +2,19 @@
 
 Counterpart of the JAX package's ``ops/bitrot_pallas.py``
 (``hash256_blocks_pallas``, the Pallas chain kernel). The CUDA kernel is
-``csrc/hh_chain.cu``: one thread per message runs the whole hash, tail
-packet and finalization included, so any length n >= 0 and any number of
-messages work. For a CPU tensor the wrapper runs the plain PyTorch
-version (``bitrot_torch.hash256_blocks_plain``); for a CUDA tensor it
-launches the kernel or raises.
+``csrc/hh_chain.cu`` on the hash core ``csrc/hh_core.cuh``: two threads
+per message (one per lane pair), packets fed through a TMA-filled ring
+in shared memory, tail packet and finalization included, so any length
+n >= 0, any number of messages and any row start work. ``plan`` sizes
+the core's launch for K1 and K2 alike. For a CPU tensor the wrapper runs
+the plain PyTorch version (``bitrot_torch.hash256_blocks_plain``); for a
+CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import collections
+from typing import NamedTuple
 
 import torch
 
@@ -19,12 +22,62 @@ from . import _build
 from .bitrot_torch import hash256_blocks_plain
 from .highwayhash import MINIO_KEY
 
-__all__ = ["hash256_blocks", "launches", "launch_shapes"]
+__all__ = ["hash256_blocks", "plan", "Plan", "launches", "launch_shapes"]
 
 # kernel launches made by hash256_blocks (CPU calls do not count), and
 # the (B, n) shapes they were made at -> launches
 launches = 0
 launch_shapes: collections.Counter = collections.Counter()
+
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+SM_SMEM = 228 * 1024       # shared memory of an SM ...
+CTA_SMEM_MAX = 227 * 1024  # ... and the most one CTA may take
+CTA_SMEM_RESERVED = 1024   # what the system keeps of it for each CTA
+STAGES = 3                 # ring depth: 2 windows in flight ahead of the chain
+WINDOWS = (4096, 2048, 1024, 512)  # a message's bytes per stage, largest first
+
+
+class Plan(NamedTuple):
+    """The hash core's launch: ``ctas`` CTAs of ``msgs`` messages (2
+    threads each, one warp at most), a ring of ``stages`` stages holding
+    ``stage_bytes`` of each message in a ``slot_bytes`` slot, and
+    ``smem_bytes`` of dynamic shared memory (ring + 2 mbarriers a
+    stage)."""
+
+    msgs: int
+    stages: int
+    stage_bytes: int
+    slot_bytes: int
+    smem_bytes: int
+    ctas: int
+
+    def args(self) -> tuple[int, int, int, int, int]:
+        """The plan's arguments of the C entry points, in their order."""
+        return self.msgs, self.stages, self.stage_bytes, self.slot_bytes, self.smem_bytes
+
+
+def plan(rows: int, n: int) -> Plan:
+    """Launch plan of the hash core for ``rows`` messages of ``n`` bytes.
+
+    Up to 16 x 132 messages, 8 a CTA, so the chains spread over every SM
+    where rows allow; beyond that 16 a CTA (one full warp). The window
+    (a message's bytes per stage) is the largest of ``WINDOWS`` with which
+    every CTA is resident at once, capped at the whole-packet prefix:
+    each window costs its copies' issue (tens of cycles per message), so
+    larger windows cost less per round, until shared memory would push
+    CTAs into a second wave. A slot holds the window plus the 32 bytes an
+    unaligned row's copy adds (copies take whole 32-byte sectors)."""
+    whole = n - n % 32
+    msgs = 8 if rows <= 16 * SMS else 16
+    ctas = -(-rows // msgs)
+    for w in WINDOWS:
+        w = max(32, min(w, whole))
+        slot = w + 32
+        smem = STAGES * msgs * slot + 16 * STAGES
+        per_sm = SM_SMEM // (smem + CTA_SMEM_RESERVED)
+        if smem <= CTA_SMEM_MAX and ctas <= SMS * per_sm:
+            break
+    return Plan(msgs, STAGES, w, slot, smem, ctas)
 
 
 def hash256_blocks(blocks: torch.Tensor, key: bytes = MINIO_KEY) -> torch.Tensor:
@@ -45,7 +98,7 @@ def hash256_blocks(blocks: torch.Tensor, key: bytes = MINIO_KEY) -> torch.Tensor
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hh_chain(blocks.data_ptr(), b, n, *_build.key_words(key),
-                          out.data_ptr(), stream)
+                          out.data_ptr(), *plan(b, n).args(), stream)
     _build.check(rc, "hh_chain")
     launches += 1
     launch_shapes[(b, n)] += 1

@@ -5,7 +5,9 @@ Pallas mega-kernel). One call turns d input shards into p output shards
 — parity rows for encode, rebuild rows (``rs.reconstruct_rows_for``) for
 decode — and returns the bitrot digests of all d + p shards. The CUDA
 kernel is ``csrc/fused_encode_hash.cu`` (two launches on one stream: the
-table-driven GF apply, then one hashing thread per shard).
+table-driven GF apply, then the hash core of ``csrc/hh_core.cuh`` over
+all d + p shards, planned by ``bitrot_cuda.plan``). ``gf_apply_only``
+runs the first launch alone, so its time can be read apart.
 
 The contract is the reference's bytes, in row-major shapes: [B, d, n] in,
 ([B, p, n], [B, d+p, 32]) out; the TPU's chunk-major layout and paired
@@ -27,14 +29,15 @@ import numpy as np
 import torch
 
 from . import _build, gf, rs
+from .bitrot_cuda import plan
 from .bitrot_torch import hash256_blocks_plain
 from .highwayhash import MINIO_KEY
 from .rs_torch import gf_apply_bits, gf_matrix_to_bitplanes
 
 __all__ = [
     "supports", "fused_encode_hash", "fused_decode_hash", "fused_plain",
-    "decode_matrix", "encode_launches", "decode_launches", "launch_shapes",
-    "CHUNK_BYTES",
+    "decode_matrix", "gf_apply_only", "encode_launches", "decode_launches",
+    "launch_shapes", "CHUNK_BYTES",
 ]
 
 CHUNK_BYTES = 1024  # the reference's per-chunk shard bytes; n must be a multiple
@@ -102,10 +105,28 @@ def _launch(data: torch.Tensor, tables: torch.Tensor, r: int, key: bytes):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_encode_hash(
             data.data_ptr(), b, d, r, n, tables.data_ptr(),
-            *_build.key_words(key), out.data_ptr(), digests.data_ptr(), stream,
+            *_build.key_words(key), out.data_ptr(), digests.data_ptr(),
+            *plan(b * (d + r), n).args(), stream,
         )
     _build.check(rc, "fused_encode_hash")
     return out, digests
+
+
+def gf_apply_only(data: torch.Tensor, tables: torch.Tensor, r: int) -> torch.Tensor:
+    """K1's first launch alone on a CUDA tensor: data [B, d, n] and the
+    [r, d, 256] product tables -> out [B, r, n]. Not a K1 launch: it
+    counts nowhere (the smoke times it beside the whole kernel)."""
+    if data.device.type != "cuda":
+        raise ValueError(f"the GF launch runs only on the card, not {data.device}")
+    b, d, n = data.shape
+    lib = _build.load()["fused_encode_hash"]
+    out = torch.empty((b, r, n), dtype=torch.uint8, device=data.device)
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fused_gf_apply(data.data_ptr(), b, d, r, n, tables.data_ptr(),
+                                out.data_ptr(), stream)
+    _build.check(rc, "fused_gf_apply")
+    return out
 
 
 def _check(data: torch.Tensor, d: int, r: int) -> torch.Tensor:
