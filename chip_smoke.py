@@ -32,21 +32,34 @@ Phases (any failure raises and the script exits non-zero):
    untimed: K1 decode for three loss patterns (1 data shard; 2 data +
    mixed parity; all data rebuilt from parity), K2 at odd lengths and on
    rows starting at every offset 0-15 (n = 31, 32, 33, 65,536, 87,382),
-   K3 on a binary matrix that no GF matrix maps to, at odd lengths and
-   every row alignment. Timed besides: K1's GF launch alone at each K1
-   shape, and K2 on a single chain (rows=1, n=131,072), the per-chain
-   floor, and K2 on 8,192 rows of 65,536, of 43,691 and of 43,680 bytes
-   (aligned rows, rows at odd addresses, and aligned rows of the odd
-   rows' whole-packet length), whose time per packet round the script
-   compares. With ``--kernels`` phases 2 and 3 are skipped and the main
-   path's shapes are taken from ``DEFAULT_SHAPES``.
+   K3 on binary matrices that no GF matrix maps to (1, 2, 3, 8 and 17
+   output rows), at odd lengths and at every row offset 0-15. Timed
+   besides: K1's GF launch alone at each K1 shape (with its byte bound and
+   the bit-plane product on the same matrix as its library yardstick), K3
+   and K1's GF launch at their largest main-path shape on all-zero input
+   against random input (``gf_conflict_ratio``: zero input reads one
+   table entry in every lane, so no bank conflict), the GF core at every
+   K1 and K3 main-path shape on grids of 1, 2, 4, 8 and 64 waves of
+   resident blocks (``gf_waves``), K2 on a single chain
+   (rows=1, n=131,072), the per-chain floor, and two alignment pairs: K2
+   on 8,192 rows of 65,536, of 43,691 and of 43,680 bytes (aligned rows,
+   rows at odd addresses, and aligned rows of the odd rows' whole-packet
+   length), whose time per packet round the script compares; K3 at the
+   8x24 composite, B=256, on rows at odd addresses (h = 43,691) and on
+   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2 and 3
+   are skipped and the main path's shapes are taken from
+   ``DEFAULT_SHAPES``.
 
 Prints the dispatcher stats, K2's device time per packet round, the hash
 core's SASS instructions per round (``cuobjdump``, where the toolkit has
-it), one ``kernels`` JSON line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Kernel times are medians of 7 samples
-of 5 back-to-back calls each. Needs one CUDA card; without one (or
-without the package beside it) it exits non-zero and prints no result.
+it), the GF core's registers and spills per instantiation (``nvcc -Xptxas
+-v``; more registers than ``gf_cuda.registers`` allows, or a spill,
+fails), ``gf_conflict_ratio``, ``gf_waves``, one ``kernels`` JSON line,
+the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``. Kernel
+times are medians of 7 samples of 5 back-to-back calls each. Needs one
+CUDA card; without one (or without the package beside it) it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -184,6 +197,9 @@ DEFAULT_SHAPES = {
                  (8192, -(-MIB // 12) // 2)],
     "gf_apply": [(256, 16, 16, 65536, 2), (256, 24, 8, -(-MIB // 12) // 2, 2)],
 }
+# K3's alignment pair: the cauchy 12+4 sub-chunk length (rows at odd
+# addresses) and the nearest length whose rows are all 16-byte aligned
+K3_PAIR = (-(-MIB // 12) // 2, 43696)
 # a fixed deployment id for the cauchy phase's ServerPools: the set each
 # key hashes to depends on it
 DEPLOYMENT_ID = "3f1c2b7a-5e4d-4c3b-9a2f-1e0d9c8b7a65"
@@ -248,8 +264,11 @@ def check_k1(torch, mods, g, key, timed: bool) -> dict:
         if not torch.equal(gf_only(), out):
             fail(f"K1 {shape_name(key)}: the GF launch alone differs from the fused output")
         bms, by = k1_bound(b, d, r, n)
+        wf = torch.from_numpy(rt.gf_matrix_to_bitplanes(m).astype(np.float32)).to(dev)
         res.update(ms=cuda_ms(torch, run, inner=5), plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   gf_ms=cuda_ms(torch, gf_only, inner=5))
+                   gf_ms=cuda_ms(torch, gf_only, inner=5),
+                   gf_bound_ms=bound(b * d * n, b * r * n, 2 * b * r * d * n)[0],
+                   gf_library_ms=cuda_ms(torch, lambda: rt.gf_apply_bits(wf, x, r), reps=5))
     return res
 
 
@@ -335,18 +354,21 @@ def check_k3(torch, mods, g, key, timed: bool) -> dict:
 
 def check_k3_binary(torch, mods, g, k: int, r: int, n: int) -> dict:
     """K3 untimed on a random [8r, 8k] binary matrix that is the image of
-    no GF matrix, rows of n bytes at each of the 4 alignments (the last
-    placement ends at its buffer's last byte)."""
+    no GF matrix, rows of n bytes starting at each offset 0-15 from a
+    16-byte boundary (the last placement ends at its buffer's last byte)."""
     import numpy as np
 
     k3 = mods["k3"]
-    w = np.random.default_rng(n * 131 + k).integers(0, 2, size=(8 * r, 8 * k)).astype(np.int8)
+    w = np.random.default_rng(n * 131 + k * 7 + r).integers(0, 2, size=(8 * r, 8 * k))
+    w = w.astype(np.int8)
     w[0, :8] = 1  # block (0, 0) maps byte 1 to 0xff and bytes 2..128 to 0:
     w[1:8, :8] = 0  # no GF(2^8) multiplication does that
-    buf = torch.randint(0, 256, (3 * k * n + 3,), dtype=torch.uint8, device=torch.device(DEV),
+    buf = torch.randint(0, 256, (3 * k * n + 15,), dtype=torch.uint8, device=torch.device(DEV),
                         generator=g)
+    if buf.data_ptr() % 16:
+        fail("K3 offsets: the buffer does not start on a 16-byte boundary")
     err = 0
-    for off in range(4):
+    for off in range(16):
         x = buf[off: off + 3 * k * n].view(3, k, n)
         err = max(err, max_abs_err(torch, k3.gf_apply_cuda(w, x, r), k3.gf_apply_plain(w, x, r)))
     return {"max_abs_err": err}
@@ -361,6 +383,114 @@ def shape_name(key) -> str:
     return f"rows={key[0]} n={key[1]}"
 
 
+def shape_weight(key) -> int:
+    """Bytes hashed per launch: B (d + r) n for K1, B n for K2; bytes
+    moved, B (k + r) n, for K3."""
+    if isinstance(key[0], str):
+        r = key[3] if key[0] == "encode" else len(key[6])
+        return key[1] * (key[2] + r) * key[4]
+    if len(key) == 5:
+        return key[0] * (key[1] + key[2]) * key[3]
+    return key[0] * key[1]
+
+
+def gf_conflict_ratio(torch, mods, shapes: dict) -> dict:
+    """K3 and K1's GF launch at their largest main-path shape, timed on
+    all-zero input (every lane reads table entry 0: a broadcast, no bank
+    conflict) and on random input; the ratio of the two times is what the
+    shared-memory bank conflicts of the lookups cost."""
+    k3, fc, ca = mods["k3"], mods["fc"], mods["cauchy"]
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def zero_vs_random(key, size, run) -> dict:
+        ms = {}
+        for name in ("zero", "random"):
+            x = torch.randint(0, 256, size, dtype=torch.uint8, device=dev, generator=g)
+            if name == "zero":
+                x.zero_()
+            ms[name] = cuda_ms(torch, lambda: run(x), inner=5)
+        return {"shape": shape_name(key), "zero_ms": ms["zero"], "random_ms": ms["random"],
+                "ratio": ms["random"] / ms["zero"]}
+
+    key = max(shapes["gf_apply"], key=shape_weight)
+    b, kc, r, h, _ = key
+    w = ca.get_torch_codec(kc // 2, r // 2, DEV).w_composite
+    out = {"gf_apply": zero_vs_random(key, (b, kc // 2, 2 * h),
+                                      lambda x: k3.gf_apply_cuda(w, x, r // 2, sub=2))}
+    key = max([*shapes["fused_encode_hash"], *shapes["fused_decode_hash"]], key=shape_weight)
+    _, b, d, p, n = key[:5]
+    if key[0] == "encode":
+        tables, r = fc._encode_tables(d, p, DEV), p
+    else:
+        tables, r = fc._decode_tables(d, p, key[5], key[6], DEV), len(key[6])
+    out["fused_gf_apply"] = zero_vs_random(key, (b, d, n),
+                                           lambda x: fc.gf_apply_only(x, tables, r))
+    return out
+
+
+def gf_waves(torch, mods, shapes: dict) -> list:
+    """The GF core at each K3 and K1 shape of ``shapes``, timed on grids of
+    1, 2, 4, 8 and 64 waves of resident blocks (``gf_cuda.plan``'s
+    ``waves``; the plan takes 1 on whole column tiles, else
+    ``gf_cuda.UNEVEN_WAVES``). Every shape goes
+    through K1's GF entry point on contiguous rows (K3's composite rows
+    as [B, 2k, h]), with the tables its wrapper builds."""
+    import numpy as np
+
+    k3, fc, ca, gc = mods["k3"], mods["fc"], mods["cauchy"], mods["gc"]
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    out = []
+    for key in sorted(shapes["gf_apply"], key=shape_weight, reverse=True):
+        b, kc, r, h, _ = key
+        w = np.asarray(ca.get_torch_codec(kc // 2, r // 2, DEV).w_composite)
+        tables = torch.from_numpy(gc.wide_tables(k3.bitplane_tables(w))).to(dev)
+        out.append((key, (b, kc, h), tables, r))
+    for key in sorted([*shapes["fused_encode_hash"], *shapes["fused_decode_hash"]],
+                      key=shape_weight, reverse=True):
+        _, b, d, p, n = key[:5]
+        if key[0] == "encode":
+            tables, r = fc._encode_tables(d, p, DEV), p
+        else:
+            tables, r = fc._decode_tables(d, p, key[5], key[6], DEV), len(key[6])
+        out.append((key, (b, d, n), tables, r))
+    res = []
+    for key, size, tables, r in out:
+        x = torch.randint(0, 256, size, dtype=torch.uint8, device=dev, generator=g)
+        ms = {w: cuda_ms(torch, lambda: fc.gf_apply_only(x, tables, r, waves=w), inner=5)
+              for w in (1, 2, 4, 8, 64)}
+        res.append({"shape": shape_name(key), "tiles": gc.plan(size[0], size[1], r, size[2]).tiles,
+                    "ms_by_waves": ms})
+    return res
+
+
+def gf_core_registers(logs: dict) -> dict:
+    """Registers and spills of each GF core instantiation (gf_core_kernel<E,
+    C>) in each library, read from ptxas's verbose output of this run's
+    build; None for a library that this process did not build."""
+    import re
+
+    res = {}
+    for lib in ("gf_apply", "fused_encode_hash"):
+        log = logs.get(lib)
+        if log is None:
+            res[lib] = None
+            continue
+        res[lib] = []
+        for chunk in log.split("Compiling entry function '")[1:]:
+            name = chunk.split("'", 1)[0]
+            ec = re.search(r"gf_core_kernelILi(\d+)ELi(\d+)E", name)
+            regs = re.search(r"Used (\d+) registers", chunk)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+            if ec and regs:
+                res[lib].append({"entry": int(ec.group(1)), "cols": int(ec.group(2)),
+                                 "registers": int(regs.group(1)),
+                                 "spill_stores": int(spill.group(1)) if spill else None,
+                                 "spill_loads": int(spill.group(2)) if spill else None})
+    return res
+
+
 def kernel_phase(torch, mods, shapes: dict) -> dict:
     """Every kernel at every shape the main path gave it (``shapes``:
     kernel -> {shape key: launches}), plus the single chain, the
@@ -370,31 +500,22 @@ def kernel_phase(torch, mods, shapes: dict) -> dict:
     per-shape results."""
     g = torch.Generator(device=torch.device(DEV)).manual_seed(SEED)
     res: dict = {}
-
-    def weight(key):
-        """Bytes hashed per launch: B (d + r) n for K1, B n for K2; bytes
-        moved, B (k + r) n, for K3."""
-        if isinstance(key[0], str):
-            r = key[3] if key[0] == "encode" else len(key[6])
-            return key[1] * (key[2] + r) * key[4]
-        if len(key) == 5:
-            return key[0] * (key[1] + key[2]) * key[3]
-        return key[0] * key[1]
-
     checks = {"fused_encode_hash": lambda key: check_k1(torch, mods, g, key, timed=True),
               "fused_decode_hash": lambda key: check_k1(torch, mods, g, key, timed=True),
               "hh_chain": lambda key: check_k2(torch, mods, g, key[0], key[1], timed=True),
               "gf_apply": lambda key: check_k3(torch, mods, g, key, timed=True)}
     for name, check in checks.items():
         per = []
-        for key, launches in sorted(shapes[name].items(), key=lambda kv: -(kv[1] or 1) * weight(kv[0])):
+        for key, launches in sorted(shapes[name].items(),
+                                    key=lambda kv: -(kv[1] or 1) * shape_weight(kv[0])):
             r = check(key)
             r.update(shape=shape_name(key), launches=launches)
             per.append(r)
             print(f"{name} {r['shape']}: launches={launches} err={r['max_abs_err']} "
                   f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f}"
                   + (f" library_ms={r['library_ms']:.4f}" if "library_ms" in r else "")
-                  + (f" gf_ms={r['gf_ms']:.4f}" if "gf_ms" in r else ""),
+                  + (f" gf_ms={r['gf_ms']:.4f} gf_bound_ms={r['gf_bound_ms']:.4f}"
+                     f" gf_library_ms={r['gf_library_ms']:.4f}" if "gf_ms" in r else ""),
                   flush=True)
         res[name] = {"main": per[0], "shapes": per}
 
@@ -415,6 +536,16 @@ def kernel_phase(torch, mods, shapes: dict) -> dict:
         print(f"hh_chain {r['shape']}: err={r['max_abs_err']} ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f}", flush=True)
 
+    # K3's alignment pair: the 8x24 composite at B=256 on the main path's
+    # rows at odd addresses (h = 43,691) and on 16-byte aligned rows of
+    # nearly the same length (h = 43,696)
+    for h in K3_PAIR:
+        r = check_k3(torch, mods, g, (256, 24, 8, h, 2), timed=True)
+        r.update(shape=f"alignment pair: {shape_name((256, 24, 8, h, 2))}", launches=None)
+        res["gf_apply"]["shapes"].append(r)
+        print(f"gf_apply {r['shape']}: err={r['max_abs_err']} ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f}", flush=True)
+
     # the three loss patterns at the degraded GETs' batch, and K2 at odd
     # lengths (rows starting at every alignment, the last ending at its
     # buffer's last byte): byte-exact, not timed
@@ -427,9 +558,9 @@ def kernel_phase(torch, mods, shapes: dict) -> dict:
     for nn in (31, 32, 33, 65536, 87382):
         extra.append(("hh_chain", f"rows=4 n={nn} offsets 0-15",
                       check_k2_offsets(torch, mods, g, nn)))
-    for nn in (1, 15, 17, 511, 43691):
-        for k, r in ((5, 3), (24, 8)):
-            extra.append(("gf_apply", f"binary {8 * r}x{8 * k} B=3 n={nn} offsets 0-3",
+    for nn in (1, 15, 17, 511, 43691, 65536):
+        for k, r in ((5, 1), (5, 2), (5, 3), (24, 8), (7, 17)):
+            extra.append(("gf_apply", f"binary {8 * r}x{8 * k} B=3 n={nn} offsets 0-15",
                           check_k3_binary(torch, mods, g, k, r, nn)))
     for name, shape, r in extra:
         res[name]["shapes"].append(dict(r, shape=shape, launches=None))
@@ -746,8 +877,8 @@ def main(argv: list[str]) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from minio_tpu_torch.ops import (
-        _build, bitrot_cuda, bitrot_torch, cauchy, fused_cuda, gf, highwayhash, rs, rs_cuda,
-        rs_torch,
+        _build, bitrot_cuda, bitrot_torch, cauchy, fused_cuda, gf, gf_cuda, highwayhash, rs,
+        rs_cuda, rs_torch,
     )
 
     t0 = time.perf_counter()
@@ -757,7 +888,7 @@ def main(argv: list[str]) -> int:
     print(f"build: {build_s:.1f} s", flush=True)
     mods = {"_build": _build, "fc": fused_cuda, "bc": bitrot_cuda, "bt": bitrot_torch,
             "rs": rs, "rt": rs_torch, "gf": gf, "hh": highwayhash, "k3": rs_cuda,
-            "cauchy": cauchy}
+            "cauchy": cauchy, "gc": gf_cuda}
     obj = cph = None
     if "--kernels" in argv:
         # no main path run: the shapes it would give, launches not measured
@@ -818,6 +949,20 @@ def main(argv: list[str]) -> int:
         65536, -(-MIB // 12) // 2, (-(-MIB // 12) // 2) & ~31))
     print(json.dumps({"k2_ns_per_round": rounds, "unaligned_over_aligned": odd / aligned,
                       "unaligned_over_aligned_same_length": odd / same}))
+    k3_odd, k3_aligned = (next(r["ms"] for r in kres["gf_apply"]["shapes"] if r["shape"] == (
+        f"alignment pair: {shape_name((256, 24, 8, h, 2))}")) for h in K3_PAIR)
+    print(json.dumps({"k3_unaligned_over_aligned": k3_odd / k3_aligned}))
+    regs = gf_core_registers(_build.logs)
+    print(json.dumps({"gf_core_registers": regs}))
+    for lib, insts in regs.items():
+        for i in insts or ():
+            if i["registers"] > gf_cuda.registers(i["entry"]) or i["spill_stores"] \
+                    or i["spill_loads"]:
+                fail(f"{lib}: gf_core_kernel<{i['entry']}, {i['cols']}> takes {i['registers']}"
+                     f" registers (plan: {gf_cuda.registers(i['entry'])}) and spills"
+                     f" {i['spill_stores']}/{i['spill_loads']} bytes")
+    print(json.dumps({"gf_conflict_ratio": gf_conflict_ratio(torch, mods, shapes)}))
+    print(json.dumps({"gf_waves": gf_waves(torch, mods, shapes)}))
     print(json.dumps({"sass_per_round": {
         name: sass_per_round(os.path.join(_build.BUILD, f"lib{name}.so"), rows)
         for name, rows in (("hh_chain", "ContigRows"), ("fused_encode_hash", "FusedRows"))}}))

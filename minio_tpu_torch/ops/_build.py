@@ -24,6 +24,9 @@ ARCH = "arch=compute_90a,code=sm_90a"
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] | None = None
+# compiler output of each source built with verbose=True in this process
+# (with -Xptxas -v: every kernel's registers, shared memory and spills)
+logs: dict[str, str] = {}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -39,16 +42,18 @@ SIGNATURES = {
         "hh_chain": [_P, _I64, _I64, _U64, _U64, _U64, _U64, _P, *[_I64] * 5, _P],
     },
     "gf_apply": {
-        # (in, in_bs, out, out_bs, B, k, r, n, tables, offs, stream)
-        "gf_apply": [_P, _I64, _P, _I64, _I64, _I, _I, _I64, _P, _P, _P],
+        # (in, in_bs, out, out_bs, B, k, r, n, tables, offs, GF plan:
+        #  threads, grid, stream)
+        "gf_apply": [_P, _I64, _P, _I64, _I64, _I, _I, _I64, _P, _P, _I64, _I64, _P],
     },
     "fused_encode_hash": {
-        # (data, B, d, p, n, tables, k0..k3, out, digests, plan: msgs_per_cta,
-        #  stages, stage_bytes, slot_bytes, smem_bytes, stream)
+        # (data, B, d, p, n, tables, k0..k3, out, digests, GF plan (2),
+        #  hash plan: msgs_per_cta, stages, stage_bytes, slot_bytes,
+        #  smem_bytes, stream)
         "fused_encode_hash": [_P, _I64, _I, _I, _I64, _P,
-                              _U64, _U64, _U64, _U64, _P, _P, *[_I64] * 5, _P],
-        # (data, B, d, p, n, tables, out, stream): the GF launch alone
-        "fused_gf_apply": [_P, _I64, _I, _I, _I64, _P, _P, _P],
+                              _U64, _U64, _U64, _U64, _P, _P, *[_I64] * 7, _P],
+        # (data, B, d, p, n, tables, out, GF plan (2), stream): the GF launch alone
+        "fused_gf_apply": [_P, _I64, _I, _I, _I64, _P, _P, _I64, _I64, _P],
     },
 }
 
@@ -101,6 +106,7 @@ def build(verbose: bool = False) -> dict[str, str]:
             failed.append(f"{name}:\n{log}")
             continue
         if verbose and log:
+            logs[name] = log
             print(f"[nvcc {name}]\n{log}", flush=True)
         os.replace(tmp, so)
     if failed:

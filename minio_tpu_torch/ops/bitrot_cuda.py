@@ -20,6 +20,7 @@ import torch
 
 from . import _build
 from .bitrot_torch import hash256_blocks_plain
+from .card import BLOCK_SMEM_MAX, BLOCK_SMEM_RESERVED, SM_SMEM, SMS
 from .highwayhash import MINIO_KEY
 
 __all__ = ["hash256_blocks", "plan", "Plan", "launches", "launch_shapes"]
@@ -29,10 +30,6 @@ __all__ = ["hash256_blocks", "plan", "Plan", "launches", "launch_shapes"]
 launches = 0
 launch_shapes: collections.Counter = collections.Counter()
 
-SMS = 132                  # streaming multiprocessors of an H100 SXM
-SM_SMEM = 228 * 1024       # shared memory of an SM ...
-CTA_SMEM_MAX = 227 * 1024  # ... and the most one CTA may take
-CTA_SMEM_RESERVED = 1024   # what the system keeps of it for each CTA
 STAGES = 3                 # ring depth: 2 windows in flight ahead of the chain
 WINDOWS = (4096, 2048, 1024, 512)  # a message's bytes per stage, largest first
 
@@ -74,8 +71,8 @@ def plan(rows: int, n: int) -> Plan:
         w = max(32, min(w, whole))
         slot = w + 32
         smem = STAGES * msgs * slot + 16 * STAGES
-        per_sm = SM_SMEM // (smem + CTA_SMEM_RESERVED)
-        if smem <= CTA_SMEM_MAX and ctas <= SMS * per_sm:
+        per_sm = SM_SMEM // (smem + BLOCK_SMEM_RESERVED)
+        if smem <= BLOCK_SMEM_MAX and ctas <= SMS * per_sm:
             break
     return Plan(msgs, STAGES, w, slot, smem, ctas)
 

@@ -5,9 +5,11 @@ Pallas mega-kernel). One call turns d input shards into p output shards
 — parity rows for encode, rebuild rows (``rs.reconstruct_rows_for``) for
 decode — and returns the bitrot digests of all d + p shards. The CUDA
 kernel is ``csrc/fused_encode_hash.cu`` (two launches on one stream: the
-table-driven GF apply, then the hash core of ``csrc/hh_core.cuh`` over
-all d + p shards, planned by ``bitrot_cuda.plan``). ``gf_apply_only``
-runs the first launch alone, so its time can be read apart.
+GF core of ``csrc/gf_core.cuh``, which K3 shares, on the matrix's product
+tables laid out by ``gf_cuda.wide_tables`` and planned by
+``gf_cuda.plan``; then the hash core of ``csrc/hh_core.cuh`` over all
+d + p shards, planned by ``bitrot_cuda.plan``). ``gf_apply_only`` runs
+the first launch alone, so its time can be read apart.
 
 The contract is the reference's bytes, in row-major shapes: [B, d, n] in,
 ([B, p, n], [B, d+p, 32]) out; the TPU's chunk-major layout and paired
@@ -28,7 +30,7 @@ import functools
 import numpy as np
 import torch
 
-from . import _build, gf, rs
+from . import _build, gf, gf_cuda, rs
 from .bitrot_cuda import plan
 from .bitrot_torch import hash256_blocks_plain
 from .highwayhash import MINIO_KEY
@@ -73,16 +75,21 @@ def decode_matrix(d: int, p: int, present: tuple, missing: tuple) -> np.ndarray:
     return rs.get_codec(d, p).reconstruct_rows_for(list(present), list(missing))
 
 
+def _wide(m: np.ndarray, device: str) -> torch.Tensor:
+    return torch.from_numpy(gf_cuda.wide_tables(gf_tables(m))).to(device)
+
+
 @functools.lru_cache(maxsize=32)
 def _encode_tables(d: int, p: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(gf_tables(rs.get_codec(d, p).parity_matrix)).to(device)
+    """The GF core's tables of the parity rows, on the card."""
+    return _wide(rs.get_codec(d, p).parity_matrix, device)
 
 
 @functools.lru_cache(maxsize=256)
 def _decode_tables(d: int, p: int, present: tuple, missing: tuple, device: str) -> torch.Tensor:
-    """Product tables of the decode rows, on the card, per failure pattern
-    (the reference's ``_decode_w3`` cache)."""
-    return torch.from_numpy(gf_tables(decode_matrix(d, p, present, missing))).to(device)
+    """The GF core's tables of the decode rows, on the card, per failure
+    pattern (the reference's ``_decode_w3`` cache)."""
+    return _wide(decode_matrix(d, p, present, missing), device)
 
 
 def fused_plain(data: torch.Tensor, m: np.ndarray, key: bytes = MINIO_KEY):
@@ -106,25 +113,33 @@ def _launch(data: torch.Tensor, tables: torch.Tensor, r: int, key: bytes):
         rc = lib.fused_encode_hash(
             data.data_ptr(), b, d, r, n, tables.data_ptr(),
             *_build.key_words(key), out.data_ptr(), digests.data_ptr(),
-            *plan(b * (d + r), n).args(), stream,
+            *gf_cuda.plan(b, d, r, n).args(), *plan(b * (d + r), n).args(), stream,
         )
     _build.check(rc, "fused_encode_hash")
     return out, digests
 
 
-def gf_apply_only(data: torch.Tensor, tables: torch.Tensor, r: int) -> torch.Tensor:
-    """K1's first launch alone on a CUDA tensor: data [B, d, n] and the
-    [r, d, 256] product tables -> out [B, r, n]. Not a K1 launch: it
-    counts nowhere (the smoke times it beside the whole kernel)."""
+def gf_apply_only(data: torch.Tensor, tables: torch.Tensor, r: int,
+                  waves: int | None = None) -> torch.Tensor:
+    """K1's first launch alone on a CUDA tensor: data [B, d, n] and the GF
+    core's [d, 256, E] tables of an [r, d] matrix (``_encode_tables``,
+    ``_decode_tables``) -> out [B, r, n], on ``gf_cuda.plan``'s grid (or
+    one of ``waves`` waves).
+    Not a K1 launch: it counts nowhere (the smoke times it beside the
+    whole kernel, and on grids of other sizes)."""
     if data.device.type != "cuda":
         raise ValueError(f"the GF launch runs only on the card, not {data.device}")
     b, d, n = data.shape
+    want = (d, 256, gf_cuda.entry_width(r) * gf_cuda.groups(r))
+    if tuple(tables.shape) != want or tables.dtype != torch.uint8:
+        raise ValueError(f"want {want} uint8 tables, got {tuple(tables.shape)} {tables.dtype}")
+    data = data.contiguous()
     lib = _build.load()["fused_encode_hash"]
     out = torch.empty((b, r, n), dtype=torch.uint8, device=data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_gf_apply(data.data_ptr(), b, d, r, n, tables.data_ptr(),
-                                out.data_ptr(), stream)
+                                out.data_ptr(), *gf_cuda.plan(b, d, r, n, waves).args(), stream)
     _build.check(rc, "fused_gf_apply")
     return out
 

@@ -5,10 +5,13 @@ the Pallas bit-plane matmul kernel), with its contract: an [8r, 8k] 0/1
 matrix applied to [B, k, n] uint8 gives [B, r, n] uint8 — the GF(2^8)
 matrix apply when the matrix is ``gf_matrix_to_bitplanes`` of one, and
 exact for any other binary matrix too. The CUDA kernel is
-``csrc/gf_apply.cu``: the matrix becomes r*k 256-entry byte tables
-(``bitplane_tables``, built on the host from the bit planes and cached per
-matrix), XOR-accumulated over the k input rows. Any n and any row
-alignment are taken, so nothing is padded.
+``csrc/gf_apply.cu`` on the GF core ``csrc/gf_core.cuh``, which K1's GF
+launch shares: the matrix becomes r*k 256-entry byte tables
+(``bitplane_tables``, built on the host from the bit planes), laid out
+input-major and wide (``gf_cuda.wide_tables``) and cached per matrix, so
+one shared-memory lookup per input byte covers a whole output row group;
+the launch is ``gf_cuda.plan``'s. Any n and any row alignment are taken,
+so nothing is padded.
 
 ``sub`` > 1 applies a matrix over sub-chunk rows in place: data
 [B, k, sub*h] is read as the [B, sub*k, h] composite whose row s*k + j is
@@ -29,16 +32,14 @@ import functools
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, gf_cuda
+from .gf_cuda import MAX_SMEM, smem_bytes
 from .rs_torch import gf_apply_bits
 
 __all__ = [
     "gf_apply_cuda", "gf_apply_plain", "bitplane_tables", "smem_bytes",
     "launches", "launch_shapes", "MAX_SMEM",
 ]
-
-# the most shared memory one thread block may use on Hopper (227 KiB)
-MAX_SMEM = 232448
 
 # kernel launches made by gf_apply_cuda (CPU calls do not count), and the
 # shapes they were made at: (B, k, r, n, sub) -> launches, with k and r
@@ -74,15 +75,10 @@ def bitplane_tables(w_bits) -> np.ndarray:
     return t
 
 
-def smem_bytes(k: int, r: int) -> int:
-    """Shared memory one block of the kernel takes: row offsets + tables."""
-    return 8 * (k + r) + 256 * r * k
-
-
 @functools.lru_cache(maxsize=64)
 def _tables(key: bytes, r8: int, k8: int, device: str) -> torch.Tensor:
     w = np.frombuffer(key, dtype=np.uint8).reshape(r8, k8)
-    return torch.from_numpy(bitplane_tables(w)).to(device)
+    return torch.from_numpy(gf_cuda.wide_tables(bitplane_tables(w))).to(device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -135,9 +131,7 @@ def gf_apply_cuda(w_bits, data: torch.Tensor, out_shards: int, sub: int = 1) -> 
         return out[0] if squeeze else out
     b, k, n = data.shape
     kc, rc = sub * k, sub * out_shards
-    if smem_bytes(kc, rc) > MAX_SMEM:
-        raise ValueError(f"a {rc}x{kc} byte-table set needs {smem_bytes(kc, rc)} B of "
-                         f"shared memory, above the {MAX_SMEM} B a block may use")
+    launch = gf_cuda.plan(b, kc, rc, h)  # raises where the tables do not fit a block
     data = data.contiguous()
     dev = str(data.device)
     tables = _tables(w.tobytes(), w.shape[0], w.shape[1], dev)
@@ -147,7 +141,7 @@ def gf_apply_cuda(w_bits, data: torch.Tensor, out_shards: int, sub: int = 1) -> 
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gf_apply(data.data_ptr(), k * n, out.data_ptr(), out_shards * n, b, kc, rc, h,
-                           tables.data_ptr(), offs.data_ptr(), stream)
+                           tables.data_ptr(), offs.data_ptr(), *launch.args(), stream)
     _build.check(err, "gf_apply")
     launches += 1
     launch_shapes[(b, kc, rc, h, sub)] += 1

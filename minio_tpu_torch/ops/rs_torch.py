@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import math
 
 import numpy as np
 import torch
@@ -66,7 +67,7 @@ def gf_apply_bits(w: torch.Tensor, data: torch.Tensor, out_shards: int) -> torch
     the float32 planes stay bounded.
     """
     *batch, k, n = data.shape
-    flat = data.reshape(-1, k, n)
+    flat = data.reshape(math.prod(batch), k, n)  # -1 is ambiguous for empty rows
     out = torch.empty((flat.shape[0], out_shards, n), dtype=torch.uint8,
                       device=data.device)
     shifts = torch.arange(8, dtype=torch.uint8, device=data.device)

@@ -147,9 +147,10 @@ def test_k3_wrapper_rejects_bad_input():
 
 
 def test_k3_shared_memory_sizes():
-    # the cauchy composites of a 16-drive set: 64 KiB and 48 KiB of
-    # tables, both above the 48 KiB static limit once the offsets are
-    # added; every 16-drive geometry fits a block, EC 16+16 does not
+    # the cauchy composites of a 16-drive set: 64 KiB and 48 KiB of wide
+    # tables (16- and 8-byte entries), both above the 48 KiB static limit
+    # once the offsets are added; every 16-drive geometry fits a block,
+    # EC 16+16 does not
     assert rs_cuda.smem_bytes(16, 16) == 65536 + 256
     assert rs_cuda.smem_bytes(24, 8) == 49152 + 256
     assert max(rs_cuda.smem_bytes(2 * d, 2 * (16 - d)) for d in range(1, 16)) <= rs_cuda.MAX_SMEM
@@ -159,8 +160,8 @@ def test_k3_shared_memory_sizes():
 def test_build_interface_has_k3():
     assert "gf_apply.cu" in {s.rsplit("/", 1)[-1] for s in _build.sources()}
     argtypes = _build.SIGNATURES["gf_apply"]["gf_apply"]
-    assert len(argtypes) == 11
-    for i in (0, 2, 8, 9, 10):  # in, out, tables, offsets, stream
+    assert len(argtypes) == 13  # ..., offsets, the GF core's threads and grid, stream
+    for i in (0, 2, 8, 9, 12):  # in, out, tables, offsets, stream
         assert argtypes[i] is ctypes.c_void_p
 
 

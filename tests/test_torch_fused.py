@@ -13,7 +13,7 @@ import torch
 
 from minio_tpu.ops import bitrot_jax, rs_jax
 from minio_tpu.ops.highwayhash import hash256_batch_numpy
-from minio_tpu_torch.ops import _build, bitrot_cuda, bitrot_torch, fused_cuda, rs_torch
+from minio_tpu_torch.ops import _build, bitrot_cuda, bitrot_torch, fused_cuda, gf_cuda, rs_torch
 from minio_tpu_torch.parallel.dispatcher import DeviceDispatcher
 
 D, P, B, N = 8, 8, 16, 1024
@@ -236,11 +236,17 @@ def test_build_interface_declares_void_pointers():
             assert argtypes[0] is ctypes.c_void_p
             assert argtypes[-1] is ctypes.c_void_p
     # the hash core's launch plan goes to K1 and K2 as five int64 before
-    # the stream; K1's GF launch has an entry point of its own
+    # the stream, the GF core's (threads, grid) to K1 and K3 as two int64
+    # (in K1 before the hash plan); K1's GF launch has an entry point of
+    # its own
     plan_args = [ctypes.c_int64] * len(bitrot_cuda.plan(16, 131072).args())
+    gf_args = [ctypes.c_int64] * len(gf_cuda.plan(256, D, P, 131072).args())
     assert _build.SIGNATURES["hh_chain"]["hh_chain"][-6:-1] == plan_args
     assert _build.SIGNATURES["fused_encode_hash"]["fused_encode_hash"][-6:-1] == plan_args
-    assert len(_build.SIGNATURES["fused_encode_hash"]["fused_gf_apply"]) == 8
+    assert _build.SIGNATURES["fused_encode_hash"]["fused_encode_hash"][-8:-6] == gf_args
+    assert _build.SIGNATURES["fused_encode_hash"]["fused_gf_apply"][-3:-1] == gf_args
+    assert _build.SIGNATURES["gf_apply"]["gf_apply"][-3:-1] == gf_args
+    assert len(_build.SIGNATURES["fused_encode_hash"]["fused_gf_apply"]) == 10
     assert _build.key_words(bytes(range(32)))[0] == int.from_bytes(bytes(range(8)), "little")
 
 
@@ -260,5 +266,5 @@ def test_gf_launch_alone_is_card_only(encoded):
     data = torch.from_numpy(encoded[0])
     before = (fused_cuda.encode_launches, fused_cuda.decode_launches)
     with pytest.raises(ValueError, match="only on the card"):
-        fused_cuda.gf_apply_only(data, torch.zeros((P, D, 256), dtype=torch.uint8), P)
+        fused_cuda.gf_apply_only(data, torch.zeros((D, 256, 8), dtype=torch.uint8), P)
     assert (fused_cuda.encode_launches, fused_cuda.decode_launches) == before
