@@ -26,8 +26,28 @@ Phases (any failure raises and the script exits non-zero):
    shard; 4 concurrent 64 MiB PUTs and GETs at EC 12+4. Its own launch
    counts are zeroed just before it and read just after: K3 must have
    carried both geometries and K2 their digests, with no fault.
-4. Hold each kernel against its plain PyTorch version on the card, byte
-   for byte, at every shape phases 2 and 3 launched it at, and a sample
+4. The durability plane, after MinIO's operator procedures ("Expand a
+   MinIO Deployment", "Decommission a Server Pool", "Recover after Drive
+   Failure"): one pool of 16 drives at EC 8+8 holds 8 reedsolomon and 4
+   cauchy objects of 64 MiB and 16 inline objects (1-128 KiB); a second
+   pool of 16 drives is attached (``placement.topology.expand_pool``) and
+   the first drained (``PoolManager.start_decommission``) on the
+   dispatcher's background lane while 4 cauchy PUTs of 64 MiB arrive in
+   the foreground. The drain must end ``complete`` with nothing failed
+   and every object moved, K1 encode, K3 and K2 must have launched, the
+   background lane must have carried every moved stripe block with no
+   foreground block deferred behind it; the drained pool is then left
+   out of a restarted deployment (``remove_pool`` refuses pool 0, which
+   anchors the system namespace). On the remaining pool: one drive wiped
+   and refilled by the fresh-drive monitor four times, in turns through
+   the device heal (K1 decode) and the native plane (device, native,
+   native, device), each refill byte-identical to the drive as it was; a
+   degraded GET whose MRF heal the heal workers complete; a deep-verify
+   scan that heals flipped parity bytes and reports every bucket's usage.
+   Counts are zeroed just before the drain and read at the end of the
+   phase.
+5. Hold each kernel against its plain PyTorch version on the card, byte
+   for byte, at every shape phases 2-4 launched it at, and a sample
    against the numpy reference codec; time both with CUDA events. Also,
    untimed: K1 decode for three loss patterns (1 data shard; 2 data +
    mixed parity; all data rebuilt from parity), K2 at odd lengths and on
@@ -46,7 +66,7 @@ Phases (any failure raises and the script exits non-zero):
    rows at odd addresses, and aligned rows of the odd rows' whole-packet
    length), whose time per packet round the script compares; K3 at the
    8x24 composite, B=256, on rows at odd addresses (h = 43,691) and on
-   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2 and 3
+   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-4
    are skipped and the main path's shapes are taken from
    ``DEFAULT_SHAPES``.
 
@@ -573,6 +593,25 @@ def kernel_phase(torch, mods, shapes: dict) -> dict:
     return res
 
 
+def _zero_counts(mods) -> None:
+    fc, bc, k3 = mods["fc"], mods["bc"], mods["k3"]
+    fc.encode_launches = fc.decode_launches = bc.launches = k3.launches = 0
+    for c in (fc.launch_shapes, bc.launch_shapes, k3.launch_shapes):
+        c.clear()
+
+
+def _counts(mods) -> tuple[dict, dict]:
+    fc, bc, k3 = mods["fc"], mods["bc"], mods["k3"]
+    launches = {"fused_encode_hash": fc.encode_launches, "fused_decode_hash": fc.decode_launches,
+                "hh_chain": bc.launches, "gf_apply": k3.launches}
+    shapes = {
+        "fused_encode_hash": {k: v for k, v in fc.launch_shapes.items() if k[0] == "encode"},
+        "fused_decode_hash": {k: v for k, v in fc.launch_shapes.items() if k[0] == "decode"},
+        "hh_chain": dict(bc.launch_shapes), "gf_apply": dict(k3.launch_shapes),
+    }
+    return launches, shapes
+
+
 def object_phase(torch, mods, root: str) -> dict:
     import numpy as np
 
@@ -600,10 +639,7 @@ def object_phase(torch, mods, root: str) -> dict:
                for i in range(4)}
     md5 = {k: hashlib.md5(v).hexdigest() for k, v in {**objs88, **objs124}.items()}
 
-    # counts zeroed just before the main path runs
-    fc.encode_launches = fc.decode_launches = bc.launches = 0
-    fc.launch_shapes.clear()
-    bc.launch_shapes.clear()
+    _zero_counts(mods)  # counts zeroed just before the main path runs
     for k in bt.decode_stats:
         bt.decode_stats[k] = 0
     t0 = time.perf_counter()
@@ -660,13 +696,7 @@ def object_phase(torch, mods, root: str) -> dict:
         if get_md5(k) != md5[k]:
             fail(f"GET {k}: md5 mismatch")
     t["get_12+4_s"] = time.perf_counter() - t0
-    launches = {"fused_encode_hash": fc.encode_launches,
-                "fused_decode_hash": fc.decode_launches, "hh_chain": bc.launches}
-    shapes = {
-        "fused_encode_hash": {k: v for k, v in fc.launch_shapes.items() if k[0] == "encode"},
-        "fused_decode_hash": {k: v for k, v in fc.launch_shapes.items() if k[0] == "decode"},
-        "hh_chain": dict(bc.launch_shapes),
-    }
+    launches, shapes = _counts(mods)
     if enc_after_put == 0 or bc.launches == 0:
         fail(f"main path missed a kernel: {launches}")
 
@@ -754,10 +784,7 @@ def cauchy_phase(torch, mods, root: str) -> dict:
 
     fam0 = coder.family_stats_snapshot()["cauchy"]
     disp0 = {k: d.stats_snapshot() for k, d in dispatcher._dispatchers.items()}
-    # counts zeroed just before this path runs
-    k3.launches = bc.launches = 0
-    k3.launch_shapes.clear()
-    bc.launch_shapes.clear()
+    _zero_counts(mods)  # counts zeroed just before this path runs
     t0 = time.perf_counter()
     run_all(lambda k: sp.put_object(bucket, k, objs88[k]), list(objs88))
     t["put_8+8_s"] = time.perf_counter() - t0
@@ -827,9 +854,7 @@ def cauchy_phase(torch, mods, root: str) -> dict:
         if get_md5(k) != md5[k]:
             fail(f"cauchy GET {k}: md5 mismatch")
     t["get_12+4_s"] = time.perf_counter() - t0
-    # counts read just after
-    launches = {"gf_apply": k3.launches, "hh_chain": bc.launches}
-    shapes = {"gf_apply": dict(k3.launch_shapes), "hh_chain": dict(bc.launch_shapes)}
+    launches, shapes = _counts(mods)  # counts read just after
     geoms = {(key[1], key[2]) for key in shapes["gf_apply"]}
     if not {(16, 16), (24, 8)} <= geoms or bc.launches == 0:
         fail(f"cauchy path missed a kernel or a geometry: {launches} {shapes['gf_apply']}")
@@ -851,6 +876,257 @@ def cauchy_phase(torch, mods, root: str) -> dict:
     return {"launches": launches, "shapes": shapes, "lone_put_launches": lone,
             "stats": stats, "family_stats": fam, "repair": repair, "seconds": t,
             "total_bytes": 64 * MIB * (len(objs88) + len(objs124) + 2)}
+
+
+# the durability phase's deployment (MinIO's operator procedures "Expand a
+# MinIO Deployment", "Decommission a Server Pool", "Recover after Drive
+# Failure"): 64 MiB objects written to the first pool, 4 more PUT while it
+# drains, and small objects on the inline path (1 KiB to 128 KiB)
+DUR_RS, DUR_CAUCHY, DUR_FG, DUR_SMALL = 8, 4, 4, 16
+BLOCK = 1 << 20  # the erasure layer's stripe block (MinIO's blockSizeV2)
+
+
+def _user_files(drive: str, buckets) -> dict:
+    """relative path -> bytes of every file under the user buckets of one
+    drive directory (``part.N`` shard files and ``xl.meta``)."""
+    out = {}
+    for b in buckets:
+        for dp, _, fs in os.walk(os.path.join(drive, b)):
+            for f in fs:
+                p = os.path.join(dp, f)
+                with open(p, "rb") as fh:
+                    out[os.path.relpath(p, drive)] = fh.read()
+    return out
+
+
+def durability_phase(torch, mods, root: str) -> dict:
+    """The durability plane on the card (module docstring, phase 4):
+    expand + decommission on the dispatcher's background lane, a replaced
+    drive refilled through the device heal and the native plane, the MRF
+    heal after a degraded read, and a deep-verify scan."""
+    import numpy as np
+
+    from minio_tpu_torch.erasure.background import BackgroundOps
+    from minio_tpu_torch.erasure.decommission import PoolManager
+    from minio_tpu_torch.erasure.pools import ServerPools
+    from minio_tpu_torch.erasure.sets import ErasureSets
+    from minio_tpu_torch.parallel import dispatcher
+    from minio_tpu_torch.placement.topology import expand_pool, remove_pool
+    from minio_tpu_torch.storage.format_erasure import init_or_load_formats
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+
+    fc = mods["fc"]
+    t_phase = time.perf_counter()
+    big, small = "durable", "inline"
+    old = [os.path.join(root, f"p0d{i}") for i in range(16)]
+    new = [os.path.join(root, f"p1d{i}") for i in range(16)]
+    sp = ServerPools([ErasureSets([[XLStorage(p) for p in old]], deployment_id=DEPLOYMENT_ID,
+                                  default_parity=8)])
+    for b in (big, small):
+        sp.make_bucket(b)
+    rng = np.random.default_rng(SEED + 4)
+    rs_keys = [f"rs-{i}" for i in range(DUR_RS)]
+    ca_keys = [f"cauchy-{i}" for i in range(DUR_CAUCHY)]
+    fg_keys = [f"fg-{i}" for i in range(DUR_FG)]
+    bodies = {k: rng.bytes(64 * MIB) for k in rs_keys + ca_keys + fg_keys}
+    sizes = [1024 * (1 + 127 * i // (DUR_SMALL - 1)) for i in range(DUR_SMALL)]
+    smalls = {f"s-{i}": rng.bytes(n) for i, n in enumerate(sizes)}
+    md5 = {k: hashlib.md5(v).hexdigest() for k, v in {**bodies, **smalls}.items()}
+    t: dict = {}
+
+    def get_md5(store, bucket, key):
+        _, it = store.get_object(bucket, key)
+        h = hashlib.md5()
+        for c in it:
+            h.update(c)
+        return h.hexdigest()
+
+    # 1. one pool, both families (switched per batch of writes) and the
+    # inline path
+    for fam, keys in (("reedsolomon", rs_keys), ("cauchy", ca_keys)):
+        os.environ["MINIO_TPU_EC_FAMILY"] = fam
+        run_all(lambda k: sp.put_object(big, k, bodies[k]), keys)
+    os.environ["MINIO_TPU_EC_FAMILY"] = "reedsolomon"
+    for k, v in smalls.items():
+        sp.put_object(small, k, v)
+    algos = {k: XLStorage(old[0]).read_version(big, k, "").erasure.algorithm
+             for k in rs_keys + ca_keys}
+    if sorted(set(algos.values())) != ["cauchy", "reedsolomon"]:
+        fail(f"the first pool does not hold both families: {algos}")
+    in_pool0 = len(rs_keys) + len(ca_keys) + len(smalls)
+
+    # 2. attach a second pool of 16 drives at EC 8+8 (expand_pool takes
+    # the set width's default parity, 4 for 16 drives), then drain the
+    # first one on the background lane while 4 cauchy PUTs arrive in the
+    # foreground. Re-PUTs take the deployment's write family
+    # (MINIO_TPU_EC_FAMILY, reedsolomon here), as in the reference.
+    expand_pool(sp, os.path.join(root, "p1d{0...15}"))
+    for s in sp.pools[1].sets:
+        s.default_parity = 8
+    disp0 = {k: d.stats_snapshot() for k, d in dispatcher._dispatchers.items()}
+    _zero_counts(mods)  # counts zeroed just before this path runs
+    pm = PoolManager(sp)
+    t0 = time.perf_counter()
+    st = pm.start_decommission(0)
+    run_all(lambda k: sp.put_object(big, k, bodies[k], family="cauchy"), fg_keys)
+    t["foreground_put_4x64MiB_during_drain_s"] = time.perf_counter() - t0
+    deadline = time.monotonic() + 900
+    while st.state == "draining" and time.monotonic() < deadline:
+        time.sleep(0.02)
+    t["drain_s"] = time.perf_counter() - t0
+    drain_launches, _ = _counts(mods)
+    if st.state != "complete" or st.failed or st.objects_moved != in_pool0:
+        left = [(b.name, raw) for b in sp.pools[0].list_buckets()
+                for raw in sp.pools[0].walk_objects(b.name)]
+        why = ""
+        if left:
+            try:  # the first failing object, moved again so its error shows
+                PoolManager._move_object(sp.pools[0], sp.pools[1], *left[0])
+            except Exception as e:  # noqa: BLE001 — reported below
+                why = f"{type(e).__name__}: {e}"
+        fail(f"decommission ended {st.state!r}, failed={st.failed}, moved {st.objects_moved} of "
+             f"{in_pool0}, error={st.error!r}; first failing object {left[:1]} {why}")
+    for name in ("fused_encode_hash", "gf_apply", "hh_chain"):
+        if not drain_launches[name]:
+            fail(f"no {name} launch during the drain: {drain_launches}")
+    lanes = {}
+    for key, d in dispatcher._dispatchers.items():
+        s1, s0 = d.stats_snapshot(), disp0.get(key)
+        for f in ("fused_failures", "device_faults", "numpy_blocks"):
+            if s1[f]:
+                fail(f"dispatcher {key[0]}+{key[1]}: {f}={s1[f]}")
+        lanes[f"{key[0]}+{key[1]}"] = dict(
+            {f: s1[f] - (s0[f] if s0 else 0) for f in ("dispatches", "blocks", "fg_blocks",
+                                                      "bg_blocks", "bg_forced")},
+            bg_batch_max=s1["bg_batch_max"], fg_deferred_behind_bg=s1["fg_deferred_behind_bg"])
+    moved_blocks = (len(rs_keys) + len(ca_keys)) * (64 * MIB // BLOCK)
+    l88 = lanes.get("8+8", {})
+    if l88.get("bg_blocks", 0) < moved_blocks or any(
+            v["fg_deferred_behind_bg"] for v in lanes.values()):
+        fail(f"background lane: bg_blocks {l88.get('bg_blocks')} < {moved_blocks} or a "
+             f"foreground block waited behind background ones: {lanes}")
+    for b in (big, small):
+        for d in old:
+            if os.listdir(os.path.join(d, b)):
+                fail(f"{d}/{b} still holds {os.listdir(os.path.join(d, b))[:3]} after the drain")
+    # the first pool anchors .minio.sys and cannot be detached online, in
+    # the reference as here; the documented procedure's last step is a
+    # restart without the drained pool
+    try:
+        remove_pool(sp, 0)
+    except ValueError:
+        pass
+    else:
+        fail("remove_pool detached pool 0, which anchors the system namespace")
+    disks = [XLStorage(p) for p in new]
+    dep, grouped = init_or_load_formats(disks, 16, allow_mint=False)
+    sp = ServerPools([ErasureSets(grouped, dep, default_parity=8)])
+    for d in old:
+        shutil.rmtree(d)
+    t0 = time.perf_counter()
+    for k in bodies:
+        if get_md5(sp, big, k) != md5[k]:
+            fail(f"GET {k} after the drain: md5 mismatch")
+    for k in smalls:
+        if get_md5(sp, small, k) != md5[k]:
+            fail(f"GET {k} after the drain: md5 mismatch")
+    t["get_all_after_removal_s"] = time.perf_counter() - t0
+    es = sp.pools[0].sets[0]
+
+    # 3. a drive replaced (wiped: rm -rf of its root, then mkdir) and
+    # refilled by the fresh-drive monitor, through the device heal (K1
+    # decode for the RS objects) and through the native plane, in turns
+    # (device, native, native, device) so that the two routes' times are
+    # compared within one run; every refill byte-identical to the drive
+    # as it was, xl.meta included
+    victim = new[3]
+    keep = _user_files(victim, (big, small))
+    heal_s, heal_k1 = {"device": [], "native": []}, {"device": [], "native": []}
+    for route in ("device", "native", "native", "device"):
+        os.environ["MINIO_TPU_DEVICE_HEAL"] = "1" if route == "device" else "0"
+        shutil.rmtree(victim)
+        os.makedirs(victim)
+        dec0 = fc.decode_launches
+        bg = BackgroundOps(sp, scan_interval=0)
+        t0 = time.perf_counter()
+        healed = bg.check_fresh_disks()
+        heal_s[route].append(time.perf_counter() - t0)
+        heal_k1[route].append(fc.decode_launches - dec0)
+        if healed != 1 or bg.stats.get("heals_failed", 0):
+            fail(f"fresh-drive heal ({route}) returned {healed}: {bg.stats}")
+        files = _user_files(victim, (big, small))
+        if set(files) != set(keep):
+            fail(f"fresh-drive heal ({route}) left other files than the drive held: "
+                 f"{sorted(set(files) ^ set(keep))[:4]}")
+        bad = [p for p, v in files.items() if keep[p] != v]
+        if bad:
+            fail(f"fresh-drive heal ({route}) wrote other bytes than the drive held: {bad[:4]}")
+    if not all(heal_k1["device"]) or any(heal_k1["native"]):
+        fail(f"K1 decode launches of the fresh-drive heals: {heal_k1}")
+
+    # 4. MRF: a degraded read queues the object, a heal worker rebuilds it
+    os.environ["MINIO_TPU_DEVICE_HEAL"] = "1"
+    bg = BackgroundOps(sp, scan_interval=0)
+    for p in sp.pools:
+        for s in p.sets:
+            s.on_degraded = bg.mrf.add
+    bg.start(scanner=False)
+    key = rs_keys[1]
+    for d in new[:8]:
+        shutil.rmtree(os.path.join(d, big, key))
+    t0 = time.perf_counter()
+    try:
+        if get_md5(sp, big, key) != md5[key]:
+            fail(f"degraded GET {key}: md5 mismatch")
+        deadline = time.monotonic() + 120
+        while bg.stats["heals_done"] < 1 and not bg.stats["heals_failed"] \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+        t["mrf_degraded_get_and_heal_s"] = time.perf_counter() - t0
+    finally:
+        bg.stop()
+        for th in bg._threads:
+            th.join(timeout=5)
+    fi, metas, _, _ = es._quorum_fileinfo(big, key, "", read_data=True)
+    back = len(es._shard_sources(fi, metas))
+    if bg.stats["heals_done"] < 1 or bg.stats["heals_failed"] or back != 16:
+        fail(f"MRF heal of {key}: {bg.stats}, {back} of 16 shards")
+    if _user_files(victim, (big, small)) != keep:
+        fail(f"the MRF heal of {key} wrote other bytes than the drive held")
+    mrf = dict(bg.stats)
+
+    # 5. deep scan: the first bytes of one parity shard's part.1 flipped
+    key = rs_keys[2]
+    dist = XLStorage(new[0]).read_version(big, key, "").erasure.distribution
+    pdrive = new[dist.index(9)]  # erasure index 9: the first parity shard
+    part = next(os.path.join(dp, "part.1") for dp, _, fs in os.walk(os.path.join(pdrive, big, key))
+                if "part.1" in fs)
+    with open(part, "rb") as fh:
+        orig = fh.read()
+    with open(part, "r+b") as fh:
+        fh.write(bytes(b ^ 0xFF for b in orig[:64]))
+    bg = BackgroundOps(sp, scan_interval=0, object_sleep=0, deep_verify=True)
+    t0 = time.perf_counter()
+    snap = bg.scan_once().snapshot()
+    t["deep_scan_s"] = time.perf_counter() - t0
+    with open(part, "rb") as fh:
+        if fh.read() != orig:
+            fail(f"deep scan did not heal the corrupted parity shard of {key}")
+    want = {big: (len(bodies), 64 * MIB * len(bodies)), small: (len(smalls), sum(sizes))}
+    got = {b: (u["objects"], u["size"]) for b, u in snap["bucketsUsage"].items()}
+    if got != want or snap["objectsCount"] != len(bodies) + len(smalls):
+        fail(f"scanner usage {got} != {want}")
+    if bg.stats["heals_failed"]:
+        fail(f"deep scan: {bg.stats}")
+
+    launches, shapes = _counts(mods)  # counts read just after
+    t["phase_s"] = time.perf_counter() - t_phase
+    return {"launches": launches, "shapes": shapes, "drain_launches": drain_launches,
+            "decommission": {k: v for k, v in st.to_persist().items()
+                             if k not in ("started", "updated", "finished")},
+            "lanes": lanes, "fresh_drive_heal_s": heal_s, "fresh_drive_heal_k1_decode": heal_k1,
+            "mrf": mrf, "deep_scan": dict(bg.stats), "usage": {b: list(v) for b, v in got.items()},
+            "seconds": t}
 
 
 def main(argv: list[str]) -> int:
@@ -889,28 +1165,31 @@ def main(argv: list[str]) -> int:
     mods = {"_build": _build, "fc": fused_cuda, "bc": bitrot_cuda, "bt": bitrot_torch,
             "rs": rs, "rt": rs_torch, "gf": gf, "hh": highwayhash, "k3": rs_cuda,
             "cauchy": cauchy, "gc": gf_cuda}
-    obj = cph = None
+    obj = cph = dur = None
     if "--kernels" in argv:
         # no main path run: the shapes it would give, launches not measured
         shapes = {k: dict.fromkeys(v) for k, v in DEFAULT_SHAPES.items()}
         launches = dict.fromkeys(shapes)
     else:
         phases = []
-        for phase in (object_phase, cauchy_phase):
+        for phase in (object_phase, cauchy_phase, durability_phase):
             root = tempfile.mkdtemp(prefix="chip_smoke_drives_", dir=HERE)
             try:
                 phases.append(phase(torch, mods, root))
             finally:
                 shutil.rmtree(root, ignore_errors=True)
-                os.environ.pop("MINIO_TPU_EC_FAMILY", None)
-        obj, cph = phases
+                for k in ("MINIO_TPU_EC_FAMILY", "MINIO_TPU_DEVICE_HEAL"):
+                    os.environ.pop(k, None)
+        obj, cph, dur = phases
         # each path's own counts, read just after it ran, summed per kernel
-        shapes = {**obj["shapes"], "gf_apply": cph["shapes"]["gf_apply"],
-                  "hh_chain": {**obj["shapes"]["hh_chain"]}}
-        for key, n in cph["shapes"]["hh_chain"].items():
-            shapes["hh_chain"][key] = shapes["hh_chain"].get(key, 0) + n
-        launches = {**obj["launches"], "gf_apply": cph["launches"]["gf_apply"],
-                    "hh_chain": obj["launches"]["hh_chain"] + cph["launches"]["hh_chain"]}
+        shapes = {k: {} for k in DEFAULT_SHAPES}
+        launches = dict.fromkeys(DEFAULT_SHAPES, 0)
+        for ph in phases:
+            for name, per in ph["shapes"].items():
+                for key, n in per.items():
+                    shapes[name][key] = shapes[name].get(key, 0) + n
+            for name, n in ph["launches"].items():
+                launches[name] += n
     # the kernels against their plain versions at the main path's shapes;
     # these launches come after the counts were read and are not counted
     kres = kernel_phase(torch, mods, shapes)
@@ -940,6 +1219,13 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"cauchy_phase": {
             k: cph[k] for k in ("launches", "lone_put_launches", "stats", "family_stats",
                                 "repair", "seconds", "total_bytes")}}))
+        print(json.dumps({"durability_phase": {
+            k: dur[k] for k in ("launches", "drain_launches", "decommission", "lanes",
+                                "fresh_drive_heal_k1_decode", "mrf", "deep_scan", "usage",
+                                "seconds")},
+            "durability_shapes": {name: {shape_name(k): n for k, n in per.items()}
+                                  for name, per in dur["shapes"].items()}}))
+        print(json.dumps({"fresh_drive_heal_s": dur["fresh_drive_heal_s"], "card": card}))
     print(json.dumps({"kernel_shapes": {k: v["shapes"] for k, v in kres.items()}}))
     # K2's device time per packet round (n/32 rounds a message), and the
     # hash core's instructions per round in the hot loop

@@ -88,12 +88,6 @@ def _lock_dyn(mtx, write: bool = True) -> bool:
 TAGS_META_KEY = "x-minio-internal-tags"
 
 
-# ILM transition metadata keys (the same strings as the tiering layer's)
-TRANSITION_TIER_META = "x-minio-internal-transition-tier"
-TRANSITION_KEY_META = "x-minio-internal-transitioned-key"
-RESTORE_EXPIRY_META = "x-minio-internal-restore-expiry"
-
-
 def _whole_file_hash(m: "FileInfo", part_number: int):
     """This drive's stored (digest, algorithm) for a part, or None when the
     shard uses the streaming format (reference cmd/bitrot-whole.go: legacy
@@ -1892,6 +1886,8 @@ class ErasureSet:
         if not _lock_dyn(mtx, write=True):
             raise QuorumError(f"lock timeout transitioning {bucket}/{obj}")
         try:
+            from ..ilm.tier import RESTORE_EXPIRY_META, TRANSITION_KEY_META, TRANSITION_TIER_META
+
             fi, metas, _, write_q = self._quorum_fileinfo(
                 bucket, obj, version_id, read_data=True
             )
@@ -1950,6 +1946,8 @@ class ErasureSet:
         if not _lock_dyn(mtx, write=True):
             raise QuorumError(f"lock timeout restoring {bucket}/{obj}")
         try:
+            from ..ilm.tier import RESTORE_EXPIRY_META, TRANSITION_TIER_META
+
             fi, metas, _, write_q = self._quorum_fileinfo(
                 bucket, obj, version_id, read_data=True
             )

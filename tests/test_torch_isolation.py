@@ -89,6 +89,10 @@ def test_import_pulls_in_no_jax():
         "import minio_tpu_torch.ops.rs_cuda, minio_tpu_torch.ops.cauchy\n"
         "import minio_tpu_torch.erasure.pools, minio_tpu_torch.erasure.multipart\n"
         "import minio_tpu_torch.placement, minio_tpu_torch.utils.checksum\n"
+        "import minio_tpu_torch.erasure.background, minio_tpu_torch.erasure.decommission\n"
+        "import minio_tpu_torch.ilm.tier, minio_tpu_torch.ilm.lifecycle\n"
+        "import minio_tpu_torch.ilm.warm_backends, minio_tpu_torch.client\n"
+        "import minio_tpu_torch.server.buckets, minio_tpu_torch.server.madmin\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
     )
