@@ -46,8 +46,23 @@ Phases (any failure raises and the script exits non-zero):
    scan that heals flipped parity bytes and reports every bucket's usage.
    Counts are zeroed just before the drain and read at the end of the
    phase.
-5. Hold each kernel against its plain PyTorch version on the card, byte
-   for byte, at every shape phases 2-4 launched it at, and a sample
+5. The S3 front: ``make_server`` over one set of 16 drives, served by an
+   ``AppRunner`` / ``TCPSite`` pair of the port's stdlib HTTP front on
+   127.0.0.1, with MinIO's documented storage classes STANDARD = EC:8
+   (reedsolomon 8+8) and REDUCED_REDUNDANCY = EC:8 in the cauchy family.
+   Through the port's ``S3Client`` (SigV4 over the socket): 8 concurrent
+   64 MiB STANDARD PUTs (streamed bodies) and their GETs; 4 concurrent
+   64 MiB REDUCED_REDUNDANCY PUTs and their GETs; a multipart upload of 4
+   concurrent 16 MiB parts; a ranged GET; a degraded GET after the 8
+   drives holding one object's data shards lose it (K1 decode); an ILM
+   transition of a 64 MiB object to a second port server acting as the
+   warm tier, read back through the first; a scrape of the metrics plane,
+   whose dispatcher series must equal the dispatcher's own aggregate.
+   Every ETag and md5 is checked; K1 encode and decode, K3 and K2 must all
+   have launched, and no dispatcher fault counter may move. Counts are
+   zeroed just before the first PUT and read just after the scrape.
+6. Hold each kernel against its plain PyTorch version on the card, byte
+   for byte, at every shape phases 2-5 launched it at, and a sample
    against the numpy reference codec; time both with CUDA events. Also,
    untimed: K1 decode for three loss patterns (1 data shard; 2 data +
    mixed parity; all data rebuilt from parity), K2 at odd lengths and on
@@ -66,11 +81,13 @@ Phases (any failure raises and the script exits non-zero):
    rows at odd addresses, and aligned rows of the odd rows' whole-packet
    length), whose time per packet round the script compares; K3 at the
    8x24 composite, B=256, on rows at odd addresses (h = 43,691) and on
-   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-4
+   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-5
    are skipped and the main path's shapes are taken from
    ``DEFAULT_SHAPES``.
 
-Prints the dispatcher stats, K2's device time per packet round, the hash
+Prints the dispatcher stats, one ``s3_phase`` JSON line (per-step
+seconds, bytes, launches and shapes, dispatcher stats, the scraped
+series), K2's device time per packet round, the hash
 core's SASS instructions per round (``cuobjdump``, where the toolkit has
 it), the GF core's registers and spills per instantiation (``nvcc -Xptxas
 -v``; more registers than ``gf_cuda.registers`` allows, or a spill,
@@ -1129,6 +1146,262 @@ def durability_phase(torch, mods, root: str) -> dict:
             "seconds": t}
 
 
+def serve_in_thread(srv) -> tuple[int, object]:
+    """Serve ``srv`` (an S3Server) on 127.0.0.1 through the port's HTTP
+    front (``web.serve_in_thread``). Returns (port, stop)."""
+    from minio_tpu_torch.server import web
+
+    port, web_stop = web.serve_in_thread(srv.app, read_bufsize=4 * MIB)
+
+    def stop():
+        srv.close()
+        web_stop()
+
+    return port, stop
+
+
+# the S3 phase's deployment: MinIO's documented storage classes on one
+# set of 16 drives, STANDARD at EC:8 (reedsolomon 8+8) and
+# REDUCED_REDUNDANCY at EC:8 in the cauchy family
+S3_ENV = {
+    "MINIO_STORAGE_CLASS_STANDARD": "EC:8",
+    "MINIO_STORAGE_CLASS_RRS": "EC:8",
+    "MINIO_TPU_EC_FAMILY_RRS": "cauchy",
+    "MINIO_TPU_CACHE": "0",
+    "MINIO_TPU_SCAN_INTERVAL": "0",
+}
+S3_STD, S3_RRS, S3_PARTS = 8, 4, 4
+TRANSITION_NOW = (
+    "<LifecycleConfiguration><Rule><ID>to-warm</ID><Status>Enabled</Status>"
+    "<Filter><Prefix>cold/</Prefix></Filter>"
+    "<Transition><Days>0</Days><StorageClass>WARM</StorageClass></Transition>"
+    "</Rule></LifecycleConfiguration>"
+)
+
+
+def _prom_value(text: str, series: str) -> float:
+    """The value of one series (name and labels as exposed) in a scrape."""
+    for ln in text.splitlines():
+        name, _, value = ln.rpartition(" ")
+        if name == series:
+            return float(value)
+    fail(f"metrics scrape has no series {series}")
+
+
+def s3_phase(torch, mods, root: str) -> dict:
+    """The S3 front on the card (module docstring, phase 5): signed S3
+    requests over a socket into the port's S3Server (``make_server`` on
+    the stdlib HTTP front), its object layer and the dispatcher."""
+    import numpy as np
+
+    from minio_tpu_torch.client import S3Client
+    from minio_tpu_torch.ilm.tier import Tier
+    from minio_tpu_torch.parallel import dispatcher
+    from minio_tpu_torch.server import app as appmod
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+
+    fc = mods["fc"]
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in S3_ENV}
+    os.environ.update(S3_ENV)
+    stops = []
+    try:
+        drives = [os.path.join(root, f"d{i}") for i in range(16)]
+        warm_drives = [os.path.join(root, f"w{i}") for i in range(16)]
+        srv = appmod.make_server(drives)
+        port, stop = serve_in_thread(srv)
+        stops.append(stop)
+        cli = S3Client(f"127.0.0.1:{port}")
+        bucket, cold = "s3smoke", "s3cold"
+        for b in (bucket, cold):
+            r = cli.make_bucket(b)
+            if r.status != 200:
+                fail(f"make_bucket {b}: {r.status} {r.body[:200]!r}")
+        rng = np.random.default_rng(SEED + 5)
+        std = {f"std-{i}": rng.bytes(64 * MIB) for i in range(S3_STD)}
+        rrs = {f"rrs-{i}": rng.bytes(64 * MIB) for i in range(S3_RRS)}
+        parts = [rng.bytes(16 * MIB) for _ in range(S3_PARTS)]
+        cold_body = rng.bytes(64 * MIB)
+        md5 = {k: hashlib.md5(v).hexdigest() for k, v in {**std, **rrs}.items()}
+        t: dict = {}
+        moved = {"put": 0, "get": 0}
+
+        def put(key, body, cls, unsigned):
+            r = cli.request("PUT", f"/{bucket}/{key}", body=body, unsigned_payload=unsigned,
+                            headers={"x-amz-storage-class": cls}, timeout=600)
+            if r.status != 200 or r.headers.get("etag", "").strip('"') != md5[key]:
+                fail(f"PUT {key} ({cls}): {r.status} etag {r.headers.get('etag')} "
+                     f"!= {md5[key]} {r.body[:200]!r}")
+            moved["put"] += len(body)
+
+        def get_check(key, want_md5, b=bucket):
+            r = cli.request("GET", f"/{b}/{key}", timeout=600)
+            if r.status != 200 or hashlib.md5(r.body).hexdigest() != want_md5:
+                fail(f"GET {b}/{key}: {r.status}, md5 mismatch")
+            moved["get"] += len(r.body)
+
+        def layout(key, b=bucket):
+            e = XLStorage(drives[0]).read_version(b, key, "").erasure
+            return e.algorithm, e.data_blocks, e.parity_blocks, e.distribution
+
+        disp0 = {k: d.stats_snapshot() for k, d in dispatcher._dispatchers.items()}
+        _zero_counts(mods)  # counts zeroed just before this path runs
+
+        # 1. STANDARD (reedsolomon 8+8, K1 encode): 8 concurrent PUTs that
+        # stream their bodies (UNSIGNED-PAYLOAD), then a GET of each
+        t0 = time.perf_counter()
+        run_all(lambda k: put(k, std[k], "STANDARD", True), list(std))
+        t["put_standard_8x64MiB_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_all(lambda k: get_check(k, md5[k]), list(std))
+        t["get_standard_8x64MiB_s"] = time.perf_counter() - t0
+        if srv.streaming_puts < S3_STD:
+            fail(f"{srv.streaming_puts} of {S3_STD} STANDARD PUTs streamed their bodies")
+        if layout("std-0")[:3] != ("reedsolomon", 8, 8):
+            fail(f"STANDARD object layout {layout('std-0')[:3]}, want reedsolomon 8+8")
+
+        # 2. REDUCED_REDUNDANCY (cauchy 8+8, K3 + K2): 4 concurrent PUTs
+        # with signed payloads (the buffered path), then a GET of each
+        t0 = time.perf_counter()
+        run_all(lambda k: put(k, rrs[k], "REDUCED_REDUNDANCY", False), list(rrs))
+        t["put_rrs_4x64MiB_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_all(lambda k: get_check(k, md5[k]), list(rrs))
+        t["get_rrs_4x64MiB_s"] = time.perf_counter() - t0
+        if layout("rrs-0")[:3] != ("cauchy", 8, 8):
+            fail(f"REDUCED_REDUNDANCY object layout {layout('rrs-0')[:3]}, want cauchy 8+8")
+
+        # 3. multipart: 4 parts of 16 MiB uploaded concurrently, completed
+        t0 = time.perf_counter()
+        r = cli.request("POST", f"/{bucket}/mp", query={"uploads": ""})
+        uid = r.body.split(b"<UploadId>")[1].split(b"</UploadId>")[0].decode()
+        etags: list = [None] * S3_PARTS
+
+        def put_part(i):
+            r = cli.request("PUT", f"/{bucket}/mp", body=parts[i], timeout=600,
+                            query={"partNumber": str(i + 1), "uploadId": uid})
+            if r.status != 200:
+                fail(f"upload part {i + 1}: {r.status} {r.body[:200]!r}")
+            etags[i] = r.headers["etag"]
+            moved["put"] += len(parts[i])
+
+        run_all(put_part, range(S3_PARTS))
+        xml = "<CompleteMultipartUpload>" + "".join(
+            f"<Part><PartNumber>{i + 1}</PartNumber><ETag>{e}</ETag></Part>"
+            for i, e in enumerate(etags)) + "</CompleteMultipartUpload>"
+        r = cli.request("POST", f"/{bucket}/mp", query={"uploadId": uid}, body=xml.encode(),
+                        timeout=600)
+        t["multipart_4x16MiB_s"] = time.perf_counter() - t0
+        want = hashlib.md5(b"".join(hashlib.md5(p).digest() for p in parts)).hexdigest()
+        got = next((el.text.strip('"') for el in r.xml().iter() if el.tag.endswith("ETag")),
+                   None) if r.status == 200 else None
+        if got != f"{want}-{S3_PARTS}":
+            fail(f"multipart complete: {r.status} ETag {got!r} != {want}-{S3_PARTS}")
+        get_check("mp", hashlib.md5(b"".join(parts)).hexdigest())
+
+        # 4. a ranged GET across stripe blocks
+        lo, hi = 1_000_003, 1_000_003 + 33 * MIB - 1
+        t0 = time.perf_counter()
+        r = cli.request("GET", f"/{bucket}/std-1", headers={"Range": f"bytes={lo}-{hi}"})
+        t["ranged_get_33MiB_s"] = time.perf_counter() - t0
+        if r.status != 206 or r.body != std["std-1"][lo:hi + 1] or \
+                r.headers.get("content-range") != f"bytes {lo}-{hi}/{64 * MIB}":
+            fail(f"ranged GET: {r.status} {r.headers.get('content-range')}")
+        moved["get"] += len(r.body)
+
+        # 5. degraded GET: the 8 drives holding std-2's data shards lose
+        # its object directory; the server rebuilds through K1 decode
+        dist = layout("std-2")[3]
+        for i, d in enumerate(drives):
+            if dist[i] <= 8:
+                shutil.rmtree(os.path.join(d, bucket, "std-2"))
+        dec0 = fc.decode_launches
+        t0 = time.perf_counter()
+        get_check("std-2", md5["std-2"])
+        t["degraded_get_64MiB_s"] = time.perf_counter() - t0
+        if fc.decode_launches == dec0:
+            fail("the degraded GET through the server launched no K1 decode")
+
+        # 6. ILM transition to a second port server acting as the warm
+        # tier (configured in-process), then a read-through GET
+        warm = appmod.make_server(warm_drives)
+        wport, wstop = serve_in_thread(warm)
+        stops.append(wstop)
+        wcli = S3Client(f"127.0.0.1:{wport}")
+        if wcli.make_bucket("tier-data").status != 200:
+            fail("warm tier: make_bucket tier-data")
+        srv.tiers.set(Tier(name="WARM", endpoint=f"http://127.0.0.1:{wport}",
+                           access_key="minioadmin", secret_key="minioadmin",
+                           bucket="tier-data", prefix="smoke/"))
+        r = cli.request("PUT", f"/{cold}", query={"lifecycle": ""}, body=TRANSITION_NOW.encode())
+        if r.status != 200:
+            fail(f"PUT lifecycle: {r.status} {r.body[:200]!r}")
+        md5["cold/obj"] = hashlib.md5(cold_body).hexdigest()
+        r = cli.request("PUT", f"/{cold}/cold/obj", body=cold_body, timeout=600)
+        if r.status != 200:
+            fail(f"PUT cold/obj: {r.status}")
+        moved["put"] += len(cold_body)
+        t0 = time.perf_counter()
+        srv.background.scan_once()
+        t["transition_64MiB_s"] = time.perf_counter() - t0
+        if srv.background.stats.get("ilm_transitioned", 0) < 1:
+            fail(f"no object transitioned to the warm tier: {srv.background.stats}")
+        left = [f for d in drives for _, _, fs in os.walk(os.path.join(d, cold)) for f in fs
+                if f.startswith("part.")]
+        if left:
+            fail(f"the transitioned object kept {len(left)} local shard files")
+        listed = wcli.list_objects_v2("tier-data", prefix="smoke/")
+        if b"<Key>smoke/" not in listed.body:
+            fail("the warm tier holds no transitioned object")
+        t0 = time.perf_counter()
+        get_check("cold/obj", md5["cold/obj"], b=cold)
+        t["get_from_warm_tier_64MiB_s"] = time.perf_counter() - t0
+
+        # 7. the metrics plane: the dispatcher's series as scraped equal
+        # its own aggregate
+        r2 = cli.request("GET", "/minio/v2/metrics/node")
+        r3 = cli.request("GET", "/minio/metrics/v3/api/tpu")
+        agg = dispatcher.aggregate_stats()
+        if r2.status != 200 or r3.status != 200:
+            fail(f"metrics scrape: v2 node {r2.status}, v3 api/tpu {r3.status}")
+        text = r3.body.decode()
+        scraped = {"minio_tpu_dispatch_total": _prom_value(text, "minio_tpu_dispatch_total"),
+                   "minio_tpu_dispatch_blocks_total{class=\"foreground\"}": _prom_value(
+                       text, "minio_tpu_dispatch_blocks_total{class=\"foreground\"}"),
+                   "minio_s3_requests_total series": r2.body.count(b"minio_s3_requests_total{")}
+        if scraped["minio_tpu_dispatch_total"] != agg["dispatches"] or \
+                scraped["minio_tpu_dispatch_blocks_total{class=\"foreground\"}"] != agg["fg_blocks"]:
+            fail(f"scraped dispatcher series {scraped} != aggregate_stats "
+                 f"dispatches={agg['dispatches']} fg_blocks={agg['fg_blocks']}")
+        launches, shapes = _counts(mods)  # counts read just after
+        t["phase_s"] = time.perf_counter() - t_phase
+
+        for name in ("fused_encode_hash", "fused_decode_hash", "gf_apply", "hh_chain"):
+            if not launches[name]:
+                fail(f"the S3 phase launched no {name}: {launches}")
+        stats = {}
+        for key, d in dispatcher._dispatchers.items():
+            s1, s0 = d.stats_snapshot(), disp0.get(key)
+            for f in ("fused_failures", "device_faults", "numpy_blocks"):
+                if s1[f] - (s0[f] if s0 else 0):
+                    fail(f"dispatcher {key[0]}+{key[1]}: {f} moved in the S3 phase")
+            stats[f"{key[0]}+{key[1]}"] = {
+                f: s1[f] - (s0[f] if s0 else 0)
+                for f in ("dispatches", "blocks", "fg_blocks", "bg_blocks", "fused", "device_s",
+                          "host_s", "queue_wait_s", "pad_blocks")}
+        return {"launches": launches, "shapes": shapes, "seconds": t, "bytes": moved,
+                "stats": stats, "scraped": scraped, "streaming_puts": srv.streaming_puts,
+                "transitioned": srv.background.stats.get("ilm_transitioned", 0)}
+    finally:
+        for stop in reversed(stops):
+            stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -1151,6 +1424,14 @@ def main(argv: list[str]) -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    import importlib.util
+
+    # the optional packages the host has: the port reaches each only
+    # through a lazy import, and the S3 phase needs none of them. The
+    # aiohttp entry decides whether the port keeps its own HTTP front
+    # (server/web.py) or serves its handlers on aiohttp (ROADMAP Queue 3)
+    print(json.dumps({"packages": {m: importlib.util.find_spec(m) is not None for m in (
+        "aiohttp", "msgpack", "cryptography", "yaml", "pyarrow")}}), flush=True)
 
     from minio_tpu_torch.ops import (
         _build, bitrot_cuda, bitrot_torch, cauchy, fused_cuda, gf, gf_cuda, highwayhash, rs,
@@ -1165,14 +1446,14 @@ def main(argv: list[str]) -> int:
     mods = {"_build": _build, "fc": fused_cuda, "bc": bitrot_cuda, "bt": bitrot_torch,
             "rs": rs, "rt": rs_torch, "gf": gf, "hh": highwayhash, "k3": rs_cuda,
             "cauchy": cauchy, "gc": gf_cuda}
-    obj = cph = dur = None
+    obj = cph = dur = s3 = None
     if "--kernels" in argv:
         # no main path run: the shapes it would give, launches not measured
         shapes = {k: dict.fromkeys(v) for k, v in DEFAULT_SHAPES.items()}
         launches = dict.fromkeys(shapes)
     else:
         phases = []
-        for phase in (object_phase, cauchy_phase, durability_phase):
+        for phase in (object_phase, cauchy_phase, durability_phase, s3_phase):
             root = tempfile.mkdtemp(prefix="chip_smoke_drives_", dir=HERE)
             try:
                 phases.append(phase(torch, mods, root))
@@ -1180,7 +1461,7 @@ def main(argv: list[str]) -> int:
                 shutil.rmtree(root, ignore_errors=True)
                 for k in ("MINIO_TPU_EC_FAMILY", "MINIO_TPU_DEVICE_HEAL"):
                     os.environ.pop(k, None)
-        obj, cph, dur = phases
+        obj, cph, dur, s3 = phases
         # each path's own counts, read just after it ran, summed per kernel
         shapes = {k: {} for k in DEFAULT_SHAPES}
         launches = dict.fromkeys(DEFAULT_SHAPES, 0)
@@ -1226,6 +1507,11 @@ def main(argv: list[str]) -> int:
             "durability_shapes": {name: {shape_name(k): n for k, n in per.items()}
                                   for name, per in dur["shapes"].items()}}))
         print(json.dumps({"fresh_drive_heal_s": dur["fresh_drive_heal_s"], "card": card}))
+        print(json.dumps({"s3_phase": dict(
+            {k: s3[k] for k in ("seconds", "bytes", "launches", "stats", "scraped",
+                                "streaming_puts", "transitioned")},
+            shapes={name: {shape_name(k): n for k, n in per.items()}
+                    for name, per in s3["shapes"].items()}, card=card)}))
     print(json.dumps({"kernel_shapes": {k: v["shapes"] for k, v in kres.items()}}))
     # K2's device time per packet round (n/32 rounds a message), and the
     # hash core's instructions per round in the hot loop

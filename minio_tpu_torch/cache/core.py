@@ -3,8 +3,9 @@
 The GET/HEAD hot path pays two structural costs per request even for an
 object read a thousand times a second: a full ``read_version`` fan-out
 across all N drives to find the quorum FileInfo, and fresh per-shard
-reads of the same bytes. With the coding path already device-accelerated
-(PERF.md: 41.76 GiB/s fused encode+hash), this per-request I/O
+reads of the same bytes. With the coding path on the card (on an H100
+80GB HBM3 at its 700 W limit, K1's fused encode + hash of 256 stripe
+blocks of 1 MiB takes 0.575 ms, PERF.md section 6), this per-request I/O
 orchestration is the wall — the same observation arXiv:2108.02692 makes
 for CPU erasure coding. This module removes both costs for hot objects:
 
@@ -890,15 +891,14 @@ def _transformed(fi) -> bool:
     transformed — those responses read through one version-pinned handle
     in multiple passes, which the segment tier must not serve."""
     try:
-        return any(k in fi.metadata for k in _TRANSFORM_META)
-    # fail-SAFE default: malformed metadata steers OFF the segment fast
-    # path onto the full erasure read, which serves correctly regardless
+        from ..server import transforms
+
+        return transforms.is_transformed(fi.metadata)
+    # fail-SAFE default: any failure (import cycle, malformed metadata)
+    # steers OFF the segment fast path onto the full erasure read, which
+    # serves correctly regardless
     except Exception:  # noqa: BLE001 — can't tell: stay off the fast path
         return True
-
-
-# SSE and compression markers (the S3 layer's transforms write these keys)
-_TRANSFORM_META = ("x-minio-internal-sse", "x-minio-internal-compression")
 
 
 def _resolve_range(range_hint, size: int) -> tuple[int, int] | None:

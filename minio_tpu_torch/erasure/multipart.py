@@ -30,12 +30,6 @@ MP_VOLUME = ".minio.sys/multipart"
 POOL_SEP = "~"  # upload ids are "<pool_idx>~<uuid>" so every part/complete
 # call resolves to the pool (and thus set) that started the upload
 
-# SSE metadata keys (the same strings as the crypto layer's; the port
-# carries them here until crypto/ is ported)
-SSE_META_ALGO = "x-minio-internal-sse"
-SSE_META_ACTUAL_SIZE = "x-minio-internal-actual-size"
-SSE_META_PART_SIZES = "x-minio-internal-sse-part-sizes"
-
 
 class UploadNotFound(Exception):
     pass
@@ -315,7 +309,9 @@ class MultipartManager:
             import json as _cks_json
 
             fi.metadata[cks.PART_CHECKSUMS_META] = _cks_json.dumps(part_cks_record)
-        if SSE_META_ALGO in fi.metadata:
+        from ..crypto import sse as ssemod
+
+        if ssemod.META_ALGO in fi.metadata:
             # per-part plaintext sizes: the decode path maps ranges to the
             # overlapping parts' packet streams
             import json as _json
@@ -324,8 +320,8 @@ class MultipartManager:
                 [n, int(pfi.metadata.get("__plain_size", pfi.size))]
                 for (n, _), pfi in zip(parts, part_fis)
             ]
-            fi.metadata[SSE_META_PART_SIZES] = _json.dumps(sizes)
-            fi.metadata[SSE_META_ACTUAL_SIZE] = str(sum(s for _, s in sizes))
+            fi.metadata[ssemod.META_PART_SIZES] = _json.dumps(sizes)
+            fi.metadata[ssemod.META_ACTUAL_SIZE] = str(sum(s for _, s in sizes))
         fi.erasure = part_fis[0].erasure
         fi.erasure.distribution = dist
         fi.erasure.parity_blocks = parity

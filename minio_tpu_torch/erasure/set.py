@@ -2476,9 +2476,11 @@ class ErasureSet:
             geometry = coder.shard_sizes_for(part.size)
             rebuilt: dict[int, bytearray] = {idx: bytearray() for idx, _ in stale}
             full_n = sum(1 for _, per in geometry if per == coder.shard_size)
-            # device heal wins only when the accelerator link is fast
-            # (PCIe-class); over a slow tunnel the native AVX2 path is
-            # several times faster — see PERF.md heal measurements
+            # opt-in: on an H100 80GB HBM3 at its 700 W limit, drive
+            # refills through the device heal and through the native AVX2
+            # path took equal time within the host's spread, the card's
+            # share being a few ms of K1 decode (PERF.md, the durability
+            # plane's findings); no speed reason makes the card the default
             import os as _os
 
             use_device = (
