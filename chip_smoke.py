@@ -61,9 +61,32 @@ Phases (any failure raises and the script exits non-zero):
    Every ETag and md5 is checked; K1 encode and decode, K3 and K2 must all
    have launched, and no dispatcher fault counter may move. Counts are
    zeroed just before the first PUT and read just after the scrape.
-6. Hold each kernel against its plain PyTorch version on the card, byte
-   for byte, at every shape phases 2-5 launched it at, and a sample
-   against the numpy reference codec; time both with CUDA events. Also,
+6. The server as operators start it, after MinIO's "Deploy MinIO:
+   Multi-Node Multi-Drive": 4 `python -m minio_tpu_torch.server`
+   processes on 127.0.0.1, 4 drives each, one erasure set of 16, with
+   phase 5's storage classes and the device heal; beside it one node of
+   16 drives as a pool of 2 workers. All serve on the card. Admin info
+   from two nodes (4 servers, 16 drives online); 8 concurrent 64 MiB
+   STANDARD PUTs, 2 through each node, each read back through another
+   node, and one through each pool worker; 2 REDUCED_REDUNDANCY PUTs; two
+   16 MiB overwrites of one key through two nodes (every node reads one
+   whole body); node 3 SIGKILLed and its drives' object directories
+   wiped; degraded GETs (K1 decode) and a PUT on the 12 drives left; node
+   3 restarted and, once its drives are online again at node 0, the
+   admin heal of the bucket, after which every file node 3 held must be
+   back byte for byte; the admin object speedtest across the nodes;
+   scrapes of every node (device dispatches and kernel launches where it
+   took PUTs, no fault counter moved, grid traffic); SIGTERM, on which
+   every process exits 0. The nodes start with their counts at zero and
+   report them on `/minio/metrics/v3/api/tpu`, in all and by shape
+   (``minio_tpu_kernel_launch_shapes_total``); node 3's are read just
+   before it is killed. Any failure prints the tail of that node's log.
+7. Hold each kernel against its plain PyTorch version on the card, byte
+   for byte, at every shape phases 2-6 launched it at, and a sample
+   against the numpy reference codec; time both with CUDA events (K1's
+   plain version gives its outputs for all K1 shapes from one call, its
+   time going to a loop over a row's packets whatever the rows, and is
+   timed alone at each K1 kernel's main shape). Also,
    untimed: K1 decode for three loss patterns (1 data shard; 2 data +
    mixed parity; all data rebuilt from parity), K2 at odd lengths and on
    rows starting at every offset 0-15 (n = 31, 32, 33, 65,536, 87,382),
@@ -81,13 +104,15 @@ Phases (any failure raises and the script exits non-zero):
    rows at odd addresses, and aligned rows of the odd rows' whole-packet
    length), whose time per packet round the script compares; K3 at the
    8x24 composite, B=256, on rows at odd addresses (h = 43,691) and on
-   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-5
+   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-6
    are skipped and the main path's shapes are taken from
    ``DEFAULT_SHAPES``.
 
 Prints the dispatcher stats, one ``s3_phase`` JSON line (per-step
 seconds, bytes, launches and shapes, dispatcher stats, the scraped
-series), K2's device time per packet round, the hash
+series), one ``cluster_phase`` line (per-step seconds, each node's
+dispatches, blocks, launches and fault counters, the heal, the speedtest
+rows, exit codes), K2's device time per packet round, the hash
 core's SASS instructions per round (``cuobjdump``, where the toolkit has
 it), the GF core's registers and spills per instantiation (``nvcc -Xptxas
 -v``; more registers than ``gf_cuda.registers`` allows, or a spill,
@@ -257,51 +282,84 @@ def k1_bound(b: int, d: int, r: int, n: int) -> tuple[float, str]:
                  b * (d + r) * (n // 32) * HASH_OPS_PER_PACKET + 2 * b * r * d * n)
 
 
-def check_k1(torch, mods, g, key, timed: bool) -> dict:
-    """K1 at one main-path shape: kernel vs its plain version on the same
-    inputs, byte for byte, a sample against the numpy reference, and (if
-    timed) CUDA-event times of both."""
-    import numpy as np
-
-    fc, rs, rt, hh = mods["fc"], mods["rs"], mods["rt"], mods["hh"]
+def k1_case(torch, mods, g, key) -> dict:
+    """K1 at one main-path shape: its inputs, GF matrix and launch."""
+    fc, rs, rt = mods["fc"], mods["rs"], mods["rt"]
     dev = torch.device(DEV)
     if key[0] == "encode":
         _, b, d, p, n = key
         x = torch.randint(0, 256, (b, d, n), dtype=torch.uint8, device=dev, generator=g)
-        m = rs.get_codec(d, p).parity_matrix
-        run = lambda: fc.fused_encode_hash(x, d, p)  # noqa: E731
-        rows, want_out, r = x, None, p
-    else:
-        _, b, d, p, n, present, missing = key
-        data = torch.randint(0, 256, (b, d, n), dtype=torch.uint8, device=dev, generator=g)
-        full = torch.cat([data, rt.get_torch_codec(d, p, dev).encode_blocks(data)], dim=1)
-        x = full[:, list(present)].contiguous()
-        m = fc.decode_matrix(d, p, present, missing)
-        run = lambda: fc.fused_decode_hash(x, d, p, present, missing)  # noqa: E731
-        rows, want_out, r = x, full[:, list(missing)], len(missing)
+        return {"key": key, "x": x, "m": rs.get_codec(d, p).parity_matrix, "want_out": None,
+                "run": lambda: fc.fused_encode_hash(x, d, p)}
+    _, b, d, p, n, present, missing = key
+    data = torch.randint(0, 256, (b, d, n), dtype=torch.uint8, device=dev, generator=g)
+    full = torch.cat([data, rt.get_torch_codec(d, p, dev).encode_blocks(data)], dim=1)
+    x = full[:, list(present)].contiguous()
+    return {"key": key, "x": x, "m": fc.decode_matrix(d, p, present, missing),
+            "want_out": full[:, list(missing)],
+            "run": lambda: fc.fused_decode_hash(x, d, p, present, missing)}
+
+
+def k1_plain(torch, mods, cases) -> list:
+    """The plain version's (out, digests) for every case: each one's GF
+    product, then one HighwayHash call over all their shards, whose time
+    goes to its loop over the packets of a row, whatever the rows."""
+    import numpy as np
+
+    rt, bt = mods["rt"], mods["bt"]
+    outs, rows = [], []
+    for c in cases:
+        x, m = c["x"], c["m"]
+        w = torch.from_numpy(rt.gf_matrix_to_bitplanes(m).astype(np.float32)).to(x.device)
+        outs.append(rt.gf_apply_bits(w, x, m.shape[0]))
+        rows.append(torch.cat([x, outs[-1]], dim=1).reshape(-1, x.shape[2]))
+    if len({r.shape[1] for r in rows}) > 1:
+        fail("k1_plain: the cases differ in shard length")
+    digs = bt.hash256_blocks_plain(torch.cat(rows)).split([len(r) for r in rows])
+    return [(o, dg.reshape(o.shape[0], -1, 32)) for o, dg in zip(outs, digs)]
+
+
+def check_k1(torch, mods, case, plain, timed: bool, time_plain: bool = False) -> dict:
+    """K1 at one case: kernel vs its plain version's outputs (``plain``)
+    on the same inputs, byte for byte, a sample against the numpy
+    reference, and (if timed) CUDA-event times of the kernel, its GF
+    launch alone and the library's GF product; with ``time_plain`` one
+    call of the plain version alone too, held to the same outputs."""
+    import numpy as np
+
+    fc, rt, hh = mods["fc"], mods["rt"], mods["hh"]
+    key, x, m, run = case["key"], case["x"], case["m"], case["run"]
+    b, d, n = x.shape
+    r = m.shape[0]
     out, dig = run()
     torch.cuda.synchronize()
-    (pout, pdig), plain_ms = timed_once(torch, lambda: fc.fused_plain(x, m))
+    pout, pdig = plain
     err = max(max_abs_err(torch, out, pout), max_abs_err(torch, dig, pdig))
-    if want_out is not None and not torch.equal(out, want_out):
+    if case["want_out"] is not None and not torch.equal(out, case["want_out"]):
         fail(f"K1 {shape_name(key)}: rebuilt shards differ from the originals")
     for bi in (0, b - 1):
-        want = mods["gf"].gf_matvec_blocks(m, rows[bi].cpu().numpy())
+        want = mods["gf"].gf_matvec_blocks(m, x[bi].cpu().numpy())
         if not (want == out[bi].cpu().numpy()).all():
             fail(f"K1 {shape_name(key)}: output rows differ from numpy GF at block {bi}")
-        shards = np.concatenate([rows[bi].cpu().numpy(), want])
+        shards = np.concatenate([x[bi].cpu().numpy(), want])
         if not (hh.hash256_batch_numpy(shards) == dig[bi].cpu().numpy()).all():
             fail(f"K1 {shape_name(key)}: digests differ from numpy HighwayHash at block {bi}")
     res = {"max_abs_err": err}
+    plain_ms = None
+    if time_plain:
+        (pout, pdig), plain_ms = timed_once(torch, lambda: fc.fused_plain(x, m))
+        if not (torch.equal(pout, plain[0]) and torch.equal(pdig, plain[1])):
+            fail(f"K1 {shape_name(key)}: the plain version alone differs from its batched call")
     if timed:
         # K1's first launch alone (fused_gf_apply), on the same tables
-        tables = (fc._encode_tables(d, p, str(dev)) if key[0] == "encode"
-                  else fc._decode_tables(d, p, present, missing, str(dev)))
+        p = key[3]
+        tables = (fc._encode_tables(d, p, str(x.device)) if key[0] == "encode"
+                  else fc._decode_tables(d, p, key[5], key[6], str(x.device)))
         gf_only = lambda: fc.gf_apply_only(x, tables, r)  # noqa: E731
         if not torch.equal(gf_only(), out):
             fail(f"K1 {shape_name(key)}: the GF launch alone differs from the fused output")
         bms, by = k1_bound(b, d, r, n)
-        wf = torch.from_numpy(rt.gf_matrix_to_bitplanes(m).astype(np.float32)).to(dev)
+        wf = torch.from_numpy(rt.gf_matrix_to_bitplanes(m).astype(np.float32)).to(x.device)
         res.update(ms=cuda_ms(torch, run, inner=5), plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    gf_ms=cuda_ms(torch, gf_only, inner=5),
                    gf_bound_ms=bound(b * d * n, b * r * n, 2 * b * r * d * n)[0],
@@ -537,24 +595,39 @@ def kernel_phase(torch, mods, shapes: dict) -> dict:
     per-shape results."""
     g = torch.Generator(device=torch.device(DEV)).manual_seed(SEED)
     res: dict = {}
-    checks = {"fused_encode_hash": lambda key: check_k1(torch, mods, g, key, timed=True),
-              "fused_decode_hash": lambda key: check_k1(torch, mods, g, key, timed=True),
-              "hh_chain": lambda key: check_k2(torch, mods, g, key[0], key[1], timed=True),
-              "gf_apply": lambda key: check_k3(torch, mods, g, key, timed=True)}
+    order = {name: sorted(per.items(), key=lambda kv: -(kv[1] or 1) * shape_weight(kv[0]))
+             for name, per in shapes.items()}
+    # K1: every case's inputs first (the main path's shapes, then the loss
+    # patterns), and its plain version's outputs for all of them from one
+    # call; the plain version is timed alone at each K1 kernel's main shape
+    loss = [("decode", 16, 8, 8, 131072, present, missing) for missing, present in LOSS_PATTERNS]
+    cases = [k1_case(torch, mods, g, key) for key in
+             [k for name in ("fused_encode_hash", "fused_decode_hash") for k, _ in order[name]]
+             + loss]
+    k1 = list(zip(cases, k1_plain(torch, mods, cases)))[::-1]  # popped in order, then freed
+    del cases
+    checks = {"fused_encode_hash": lambda key, main: check_k1(torch, mods, *k1.pop(), True, main),
+              "fused_decode_hash": lambda key, main: check_k1(torch, mods, *k1.pop(), True, main),
+              "hh_chain": lambda key, main: check_k2(torch, mods, g, key[0], key[1], timed=True),
+              "gf_apply": lambda key, main: check_k3(torch, mods, g, key, timed=True)}
     for name, check in checks.items():
         per = []
-        for key, launches in sorted(shapes[name].items(),
-                                    key=lambda kv: -(kv[1] or 1) * shape_weight(kv[0])):
-            r = check(key)
+        for key, launches in order[name]:
+            r = check(key, not per)
             r.update(shape=shape_name(key), launches=launches)
             per.append(r)
             print(f"{name} {r['shape']}: launches={launches} err={r['max_abs_err']} "
-                  f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f}"
+                  f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f}"
+                  + (f" plain_ms={r['plain_ms']:.1f}" if r["plain_ms"] is not None else "")
                   + (f" library_ms={r['library_ms']:.4f}" if "library_ms" in r else "")
                   + (f" gf_ms={r['gf_ms']:.4f} gf_bound_ms={r['gf_bound_ms']:.4f}"
                      f" gf_library_ms={r['gf_library_ms']:.4f}" if "gf_ms" in r else ""),
                   flush=True)
         res[name] = {"main": per[0], "shapes": per}
+    # the three loss patterns at the degraded GETs' batch: byte-exact, not
+    # timed
+    extra = [("fused_decode_hash", shape_name(key), check_k1(torch, mods, *k1.pop(), False))
+             for key in loss]
 
     # one chain alone: the per-chain floor that no batch can beat
     r = check_k2(torch, mods, g, 1, 131072, timed=True)
@@ -583,13 +656,8 @@ def kernel_phase(torch, mods, shapes: dict) -> dict:
         print(f"gf_apply {r['shape']}: err={r['max_abs_err']} ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f}", flush=True)
 
-    # the three loss patterns at the degraded GETs' batch, and K2 at odd
-    # lengths (rows starting at every alignment, the last ending at its
-    # buffer's last byte): byte-exact, not timed
-    extra = []
-    for missing, present in LOSS_PATTERNS:
-        key = ("decode", 16, 8, 8, 131072, present, missing)
-        extra.append(("fused_decode_hash", shape_name(key), check_k1(torch, mods, g, key, False)))
+    # K2 at odd lengths (rows starting at every alignment, the last
+    # ending at its buffer's last byte): byte-exact, not timed
     for nn in (0, 1, 31, 32, 33, 34, 38, 65, 95):
         extra.append(("hh_chain", f"rows=1000 n={nn}", check_k2(torch, mods, g, 1000, nn, False)))
     for nn in (31, 32, 33, 65536, 87382):
@@ -1402,6 +1470,414 @@ def s3_phase(torch, mods, root: str) -> dict:
                 os.environ[k] = v
 
 
+# the cluster phase's deployment: MinIO's "Deploy MinIO: Multi-Node
+# Multi-Drive" (`minio server http://minio{1...4}.example.net:9000/mnt/
+# disk{1...4}/minio`) on one host: 4 nodes of 4 drives, one erasure set of
+# 16, each node a `python -m minio_tpu_torch.server` process on a port of
+# its own; the storage classes of phase 5, and heals through the device.
+# Beside it a single node of 16 drives runs as a pool of 2 workers
+# (MINIO_TPU_WORKERS=2): the reference refuses a pool in a distributed
+# deployment, as the port does
+CLUSTER_ENV = {**S3_ENV, "MINIO_TPU_DEVICE_HEAL": "1"}
+NODES, NODE_DRIVES = 4, 4
+NODE_START_S = 300  # bootstrap retries once a second, 180 times
+NODE_STOP_S = 30
+# 64 MiB objects, 4 clients of 2 each a node: at 8 each (2 GiB a node,
+# all 4 nodes at once) the peers' rows outlast the coordinator's fan-out
+# timeout, the reference's 120 s (diag.fanout_collect)
+SPEEDTEST = {"size": str(64 * MIB), "ops": "2", "concurrency": "4"}
+
+
+class _Node:
+    """One `python -m minio_tpu_torch.server` process and its log."""
+
+    def __init__(self, name: str, port: int, args: list, env: dict, log: str):
+        self.name, self.port, self.args, self.env, self.log = name, port, args, env, log
+        self.proc = None
+
+    def start(self) -> None:
+        from minio_tpu_torch.server import nodes
+
+        self.proc = nodes.spawn(self.port, self.args, self.env, self.log)
+
+    def tail(self, n: int = 4000) -> str:
+        from minio_tpu_torch.server import nodes
+
+        return nodes.tail(self.log, n)
+
+    def fail(self, msg: str) -> None:
+        fail(f"{self.name}: {msg}\n--- tail of {self.name}'s log ---\n{self.tail()}")
+
+    def kill(self) -> None:
+        from minio_tpu_torch.server import nodes
+
+        if self.proc is not None:
+            nodes.stop_all([self.proc], NODE_STOP_S)
+
+
+def _wait_online(group, clients) -> None:
+    """Until each client's node answers GET / with 200 (a pool's workers
+    are two clients of one node)."""
+    from minio_tpu_torch.server import nodes
+
+    try:
+        nodes.wait_online(clients, [n.proc for n in group], NODE_START_S)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"{e} ({[n.name for n in group]})\n" + "".join(
+            f"--- tail of {n.name}'s log ---\n{n.tail()}\n" for n in dict.fromkeys(group)))
+
+
+def _wait_drives_online(node, cli, want: int) -> None:
+    """Until the node's storage info shows ``want`` drives "ok": a peer's
+    drives come back to it only after its circuit breaker's cooldown
+    (MINIO_TPU_DRIVE_COOLDOWN_S, 15 s), as `mc admin info` would show."""
+    deadline = time.monotonic() + NODE_START_S
+    while True:
+        r = cli.request("GET", "/minio/admin/v3/storageinfo")
+        ok = [d for d in json.loads(r.body)["disks"] if d.get("state") == "ok"] \
+            if r.status == 200 else []
+        if len(ok) == want:
+            return
+        if time.monotonic() > deadline:
+            node.fail(f"{len(ok)} of {want} drives online after {NODE_START_S} s")
+        time.sleep(0.5)
+
+
+def _scrape(cli, group: str, local: bool = False) -> dict:
+    """{series (name and labels): value} of one metrics v3 group."""
+    r = cli.request("GET", f"/minio/metrics/v3{group}", query={"local": "on"} if local else None)
+    if r.status != 200:
+        fail(f"scrape {group}: HTTP {r.status}")
+    out = {}
+    for ln in r.body.decode().splitlines():
+        if ln and not ln.startswith("#"):
+            name, _, value = ln.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+KERNELS = ("fused_encode_hash", "fused_decode_hash", "gf_apply", "hh_chain")
+FAULT_SERIES = ("minio_tpu_fused_failures_total", "minio_tpu_backend_device_faults_total",
+                "minio_tpu_backend_numpy_blocks_total", "minio_tpu_backend_demotions_total")
+
+
+def _launch_shapes(tpu: dict) -> dict:
+    """{kernel: {shape key: launches}} from the minio_tpu_kernel_launch_
+    shapes_total series of an /api/tpu scrape (the key a JSON list in the
+    shape label, as the wrapper keeps it)."""
+    import re
+
+    out = {k: {} for k in KERNELS}
+    for series, n in tpu.items():
+        m = re.fullmatch(r'minio_tpu_kernel_launch_shapes_total\{kernel="(\w+)",'
+                         r'shape="((?:[^"\\]|\\.)*)"\}', series)
+        if m:
+            key = json.loads(json.loads(f'"{m.group(2)}"'))
+            out[m.group(1)][tuple(tuple(x) if isinstance(x, list) else x for x in key)] = int(n)
+    return out
+
+
+def _node_counts(cli, local: bool = False) -> dict:
+    """A node's device dispatches, blocks, kernel launches (in all and by
+    shape) and fault counters, from its /api/tpu and /api/fault scrapes."""
+    tpu, flt = _scrape(cli, "/api/tpu", local), _scrape(cli, "/api/fault", local)
+    out = {"dispatches": tpu["minio_tpu_dispatch_total"],
+           "fg_blocks": tpu['minio_tpu_dispatch_blocks_total{class="foreground"}'],
+           "bg_blocks": tpu['minio_tpu_dispatch_blocks_total{class="background"}'],
+           "device_s": tpu["minio_tpu_device_seconds_total"],
+           "launches": {k: tpu[f'minio_tpu_kernel_launches_total{{kernel="{k}"}}']
+                        for k in KERNELS},
+           "shapes": _launch_shapes(tpu),
+           "backend_level": flt["minio_tpu_backend_level"]}
+    for k in KERNELS:
+        if sum(out["shapes"][k].values()) != out["launches"][k]:
+            fail(f"{k}: launches by shape {out['shapes'][k]} do not add up to "
+                 f"{out['launches'][k]}")
+    out["faults"] = {k: tpu[k] if k in tpu else flt[k] for k in FAULT_SERIES}
+    return out
+
+
+def cluster_phase(torch, mods, root: str) -> dict:
+    """The server as operators start it (module docstring, phase 6): a
+    4-node x 4-drive deployment of `python -m minio_tpu_torch.server`
+    processes sharing the card, and a 2-worker pool beside it."""
+    import numpy as np
+
+    from minio_tpu_torch.client import S3Client
+    from minio_tpu_torch.server.nodes import free_port_block, free_ports
+
+    _build = mods["_build"]
+    stale = [s for s in _build.sources() if _build._stale(
+        os.path.join(_build.BUILD, f"lib{os.path.splitext(os.path.basename(s))[0]}.so"), s)]
+    if stale:  # the nodes would each run nvcc
+        fail(f"kernel libraries older than their sources before the nodes start: {stale}")
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MINIO_")}
+    env.update({k: v for k, v in os.environ.items()
+                if k in ("MINIO_TPU_TORCH_DEVICE", "MINIO_TPU_BACKEND")})
+    env.update(CLUSTER_ENV, PYTHONPATH=HERE, MINIO_TPU_SANITIZE="0")
+    ports = free_ports(NODES)
+    specs = [f"http://127.0.0.1:{ports[i]}{root}/n{i}/d{j}"
+             for i in range(NODES) for j in range(1, NODE_DRIVES + 1)]
+    nodes = [_Node(f"node{i}", ports[i], specs, env, os.path.join(root, f"node{i}.log"))
+             for i in range(NODES)]
+    pool_port = free_port_block(3)
+    pool = _Node("pool", pool_port, [os.path.join(root, "pool", f"d{j}") for j in range(16)],
+                 {**env, "MINIO_TPU_WORKERS": "2",
+                  "MINIO_TPU_WORKER_PORT_BASE": str(pool_port + 1)},
+                 os.path.join(root, "pool.log"))
+    clis = [S3Client(f"127.0.0.1:{p}") for p in ports]
+    workers = [S3Client(f"127.0.0.1:{pool_port + 1 + i}") for i in range(2)]
+    everyone = [*nodes, pool]
+    t: dict = {}
+
+    def step(name: str, t0: float) -> None:
+        # printed as it ends: a run that fails later still shows it
+        t[name] = time.perf_counter() - t0
+        print(f"cluster step {name}: {t[name]:.2f} s", flush=True)
+
+    want_dev = "cuda" if DEV.startswith("cuda") else "cpu"
+    try:
+        # 1. start every node with one endpoint list (and the pool); each
+        # answers GET / with 200 once its object layer is online
+        t0 = time.perf_counter()
+        for n in everyone:
+            n.start()
+        _wait_online(nodes, clis)
+        step("start_4_nodes_s", t0)
+        _wait_online([pool, pool], workers)
+        step("start_nodes_and_pool_s", t0)
+        for n in everyone:
+            lines = [ln for ln in n.tail(200_000).splitlines() if ln.startswith("device: ")]
+            if len(lines) != (2 if n is pool else 1) or any(
+                    not ln.startswith(f"device: {want_dev}") for ln in lines):
+                n.fail(f"serves on {lines}, not on {want_dev}")
+            if "bootstrap config check" in n.tail(200_000):
+                n.fail("bootstrap found a configuration difference")
+
+        # 2. admin info from two nodes: 4 servers, 16 drives online
+        online_seen = {}
+        for i in (0, 2):
+            r = clis[i].request("GET", "/minio/admin/v3/info")
+            if r.status != 200:
+                nodes[i].fail(f"admin info: HTTP {r.status} {r.body[:200]!r}")
+            info = json.loads(r.body)
+            drives = [d for p in info["pools"] for st in p["sets"] for d in st["drives"]]
+            servers = {d.split("/")[2] for d in drives}
+            r = clis[i].request("GET", "/minio/admin/v3/storageinfo")
+            online = [d for d in json.loads(r.body)["disks"] if d.get("state") == "ok"]
+            if len(servers) != NODES or len(drives) != 16 or len(online) != 16:
+                nodes[i].fail(f"admin info: {len(servers)} servers, {len(drives)} drives, "
+                              f"{len(online)} online")
+            online_seen[f"node{i}"] = {"servers": len(servers), "drives_online": len(online)}
+
+        bucket = "cluster"
+        if clis[0].make_bucket(bucket).status != 200:
+            nodes[0].fail("make_bucket")
+        if workers[0].make_bucket(bucket).status != 200:
+            pool.fail("make_bucket")
+        rng = np.random.default_rng(SEED + 6)
+        std = {f"std-{i}": rng.bytes(64 * MIB) for i in range(8)}
+        rrs = {f"rrs-{i}": rng.bytes(64 * MIB) for i in range(2)}
+        race = [rng.bytes(16 * MIB) for _ in range(2)]
+        late = rng.bytes(64 * MIB)
+        md5 = {k: hashlib.md5(v).hexdigest() for k, v in {**std, **rrs, "late": late}.items()}
+        moved = {"put": 0, "get": 0, "bodies_checked": 0}
+
+        def put(cli, node, key, body, cls="STANDARD"):
+            r = cli.request("PUT", f"/{bucket}/{key}", body=body, unsigned_payload=True,
+                            headers={"x-amz-storage-class": cls}, timeout=600)
+            if r.status != 200 or r.headers.get("etag", "").strip('"') != hashlib.md5(
+                    body).hexdigest():
+                node.fail(f"PUT {key} ({cls}): {r.status} etag {r.headers.get('etag')} "
+                          f"{r.body[:200]!r}")
+            moved["put"] += len(body)
+
+        def get_check(cli, node, key, want):
+            r = cli.request("GET", f"/{bucket}/{key}", timeout=600)
+            if r.status != 200 or hashlib.md5(r.body).hexdigest() != want or \
+                    r.headers.get("etag", "").strip('"') != want:
+                node.fail(f"GET {key}: {r.status}, md5 or ETag mismatch")
+            moved["get"] += len(r.body)
+            moved["bodies_checked"] += 1
+
+        # 3. 8 concurrent 64 MiB STANDARD PUTs, 2 through each node (K1
+        # encode), each read back through another node; one through each
+        # pool worker, read back through the other
+        keys = list(std)
+        t0 = time.perf_counter()
+        run_all(lambda i: put(clis[i % NODES], nodes[i % NODES], keys[i], std[keys[i]]),
+                range(len(keys)))
+        step("put_standard_8x64MiB_s", t0)
+        t0 = time.perf_counter()
+        run_all(lambda i: get_check(clis[(i + 1) % NODES], nodes[(i + 1) % NODES], keys[i],
+                                    md5[keys[i]]), range(len(keys)))
+        step("get_standard_8x64MiB_other_node_s", t0)
+        t0 = time.perf_counter()
+        run_all(lambda w: put(workers[w], pool, f"pool-{w}", std[keys[w]]), range(2))
+        run_all(lambda w: get_check(workers[1 - w], pool, f"pool-{w}", md5[keys[w]]), range(2))
+        step("pool_put_get_2x64MiB_s", t0)
+
+        # 4. 2 REDUCED_REDUNDANCY PUTs through node 1 (K3 + K2), read
+        # through node 2
+        t0 = time.perf_counter()
+        run_all(lambda k: put(clis[1], nodes[1], k, rrs[k], "REDUCED_REDUNDANCY"), list(rrs))
+        step("put_rrs_2x64MiB_s", t0)
+        t0 = time.perf_counter()
+        run_all(lambda k: get_check(clis[2], nodes[2], k, md5[k]), list(rrs))
+        step("get_rrs_2x64MiB_s", t0)
+
+        # 5. two concurrent 16 MiB overwrites of one key through nodes 0
+        # and 2 (the distributed lock): every node reads one body, whole
+        t0 = time.perf_counter()
+        run_all(lambda i: put(clis[2 * i], nodes[2 * i], "race", race[i]), range(2))
+        step("overwrite_race_2x16MiB_s", t0)
+        seen = set()
+        for i in range(NODES):
+            r = clis[i].request("GET", f"/{bucket}/race", timeout=600)
+            if r.status != 200 or r.body not in race:
+                nodes[i].fail(f"race: {r.status}, the body is neither writer's")
+            seen.add(r.body)
+        if len(seen) != 1:
+            fail("race: the nodes read different bodies")
+
+        # 6. node 3's files, then SIGKILL and its drives' object
+        # directories wiped, as for a replaced server
+        n3_drives = [os.path.join(root, "n3", f"d{j}") for j in range(1, NODE_DRIVES + 1)]
+        before = {d: _user_files(d, [bucket]) for d in n3_drives}
+        if not all(before.values()):
+            nodes[3].fail("holds no object files")
+        counts = {"node3-before-kill": _node_counts(clis[3])}
+        nodes[3].kill()
+        for d in n3_drives:
+            for entry in os.listdir(os.path.join(d, bucket)):
+                shutil.rmtree(os.path.join(d, bucket, entry))
+
+        # 7. degraded GETs of the 8 STANDARD objects through nodes 0 and 1
+        # (K1 decode), and a STANDARD PUT on the 12 drives left
+        dec0 = [_node_counts(clis[i])["launches"]["fused_decode_hash"] for i in (0, 1)]
+        t0 = time.perf_counter()
+        run_all(lambda i: get_check(clis[i % 2], nodes[i % 2], keys[i], md5[keys[i]]),
+                range(len(keys)))
+        step("degraded_get_8x64MiB_node3_down_s", t0)
+        dec1 = [_node_counts(clis[i])["launches"]["fused_decode_hash"] for i in (0, 1)]
+        if sum(dec1) == sum(dec0):
+            fail(f"the degraded GETs launched no K1 decode: {dec0} -> {dec1}")
+        t0 = time.perf_counter()
+        put(clis[1], nodes[1], "late", late)
+        step("put_standard_64MiB_node3_down_s", t0)
+
+        # 8. node 3 back; the admin heal of the bucket restores every file
+        # it held, byte for byte, and gives the late object its shards
+        t0 = time.perf_counter()
+        nodes[3].start()
+        _wait_online([nodes[3]], [clis[3]])
+        step("restart_node3_s", t0)
+        _wait_drives_online(nodes[0], clis[0], 16)
+        step("node3_drives_online_at_node0_s", t0)
+        dec0 = _node_counts(clis[0])["launches"]["fused_decode_hash"]
+        t0 = time.perf_counter()
+        r = clis[0].request("POST", f"/minio/admin/v3/heal/{bucket}", timeout=1200)
+        step("admin_heal_s", t0)
+        heal = json.loads(r.body) if r.status == 200 else None
+        # every object held 4 shards on node 3: each is healed there
+        if heal is None or heal["failed"] or heal["scanned"] != len(keys) + len(rrs) + 2 \
+                or len(heal["healed"]) != NODE_DRIVES * heal["scanned"]:
+            nodes[0].fail(f"admin heal: {r.status} {r.body[:400]!r}")
+        after = {d: _user_files(d, [bucket]) for d in n3_drives}
+        changed = sorted(f"{d}:{f}" for d in n3_drives for f, b in before[d].items()
+                         if after[d].get(f) != b)
+        if changed:
+            fail(f"node 3's files not restored byte for byte: {changed[:8]}")
+        late_dir = os.path.join(bucket, "late") + os.sep
+        if not all(any(f.startswith(late_dir) for f in after[d]) for d in n3_drives):
+            fail("the object written while node 3 was down has no shards there")
+        heal_decodes = _node_counts(clis[0])["launches"]["fused_decode_hash"] - dec0
+        if heal_decodes <= 0:
+            nodes[0].fail("the admin heal launched no K1 decode")
+        get_check(clis[3], nodes[3], "late", md5["late"])
+
+        # 9. the admin object speedtest across the cluster: one row a node
+        t0 = time.perf_counter()
+        r = clis[0].request("POST", "/minio/admin/v3/speedtest", query=SPEEDTEST, timeout=1200)
+        step("speedtest_s", t0)
+        rows = json.loads(r.body)["nodes"] if r.status == 200 else {}
+        if len(rows) != NODES or any("error" in v for v in rows.values()):
+            nodes[0].fail(f"speedtest: {r.status} {r.body[:400]!r}")
+        speed = {k: v.get("knee") for k, v in rows.items()}
+
+        # 10. every node's scrapes, then SIGTERM: each exits 0 in time
+        for i, cli in enumerate(clis):
+            counts[f"node{i}"] = _node_counts(cli)
+            net = _scrape(cli, "/system/network/internode")
+            counts[f"node{i}"]["grid_sent_bytes"] = net[
+                "minio_system_network_internode_sent_bytes_total"]
+            counts[f"node{i}"]["grid_calls"] = net["minio_system_network_internode_calls_total"]
+        for w in range(2):
+            counts[f"pool-worker{w}"] = _node_counts(workers[w], local=True)
+        for name, c in counts.items():
+            # every node took PUTs: STANDARD ones (K1 encode), except node
+            # 3 after its restart, which took the speedtest's (the set's
+            # default parity, 12+4: the bit-plane product + K2)
+            if c["dispatches"] <= 0 or not any(c["launches"].values()) or (
+                    name != "node3" and c["launches"]["fused_encode_hash"] <= 0):
+                fail(f"{name} took PUTs but shows no device dispatch: {c}")
+            if any(c["faults"].values()) or c["backend_level"] != 2:
+                fail(f"{name}: a fault counter moved: {c}")
+            if name.startswith("node") and name != "node3-before-kill" and (
+                    c["grid_sent_bytes"] <= 0 or c["grid_calls"] <= 0):
+                fail(f"{name}: no grid traffic: {c}")
+        if not counts["node1"]["launches"]["gf_apply"] or \
+                not counts["node1"]["launches"]["hh_chain"]:
+            fail(f"node 1 took the REDUCED_REDUNDANCY PUTs but launched no K3/K2: {counts}")
+        # which processes loaded the CUDA driver: every serving process,
+        # and not the pool's supervisor, which builds no object layer
+        procs = {n.name: n.proc.pid for n in everyone}
+        for w in range(2):  # each worker names its pid in admin info
+            r = workers[w].request("GET", "/minio/admin/v3/info")
+            procs[f"pool-worker{w}"] = json.loads(r.body)["pid"]
+        libcuda = {}
+        for name, pid in procs.items():
+            try:
+                with open(f"/proc/{pid}/maps") as fh:
+                    libcuda[name] = "libcuda.so" in fh.read()
+            except OSError:
+                libcuda[name] = None
+        t0 = time.perf_counter()
+        for n in everyone:
+            n.proc.send_signal(15)
+        exits = {}
+        for n in everyone:
+            try:
+                exits[n.name] = n.proc.wait(NODE_STOP_S)
+            except subprocess.TimeoutExpired:
+                n.fail(f"did not exit within {NODE_STOP_S} s of SIGTERM")
+            if exits[n.name] != 0:
+                n.fail(f"exited {exits[n.name]} on SIGTERM")
+        step("sigterm_all_s", t0)
+        t["phase_s"] = time.perf_counter() - t_phase
+        # every process's counts, node 3's from before its kill and after
+        # its restart (each process starts at zero)
+        launches = dict.fromkeys(KERNELS, 0)
+        shapes = {k: {} for k in KERNELS}
+        for c in counts.values():
+            per = c.pop("shapes")
+            for k in KERNELS:
+                launches[k] += int(c["launches"][k])
+                for key, n in per[k].items():
+                    shapes[k][key] = shapes[k].get(key, 0) + n
+        return {"launches": launches, "shapes": shapes, "seconds": t, "bytes": moved,
+                "nodes": counts, "heal": {"scanned": heal["scanned"],
+                                          "healed": len(heal["healed"]),
+                                          "k1_decode_launches": heal_decodes},
+                "restored_files": sum(map(len, before.values())), "speedtest_knee": speed,
+                "online": online_seen, "exits": exits,
+                "libcuda_mapped": libcuda}
+    finally:
+        for n in everyone:
+            n.kill()
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -1446,14 +1922,14 @@ def main(argv: list[str]) -> int:
     mods = {"_build": _build, "fc": fused_cuda, "bc": bitrot_cuda, "bt": bitrot_torch,
             "rs": rs, "rt": rs_torch, "gf": gf, "hh": highwayhash, "k3": rs_cuda,
             "cauchy": cauchy, "gc": gf_cuda}
-    obj = cph = dur = s3 = None
+    obj = cph = dur = s3 = clu = None
     if "--kernels" in argv:
         # no main path run: the shapes it would give, launches not measured
         shapes = {k: dict.fromkeys(v) for k, v in DEFAULT_SHAPES.items()}
         launches = dict.fromkeys(shapes)
     else:
         phases = []
-        for phase in (object_phase, cauchy_phase, durability_phase, s3_phase):
+        for phase in (object_phase, cauchy_phase, durability_phase, s3_phase, cluster_phase):
             root = tempfile.mkdtemp(prefix="chip_smoke_drives_", dir=HERE)
             try:
                 phases.append(phase(torch, mods, root))
@@ -1461,7 +1937,7 @@ def main(argv: list[str]) -> int:
                 shutil.rmtree(root, ignore_errors=True)
                 for k in ("MINIO_TPU_EC_FAMILY", "MINIO_TPU_DEVICE_HEAL"):
                     os.environ.pop(k, None)
-        obj, cph, dur, s3 = phases
+        obj, cph, dur, s3, clu = phases
         # each path's own counts, read just after it ran, summed per kernel
         shapes = {k: {} for k in DEFAULT_SHAPES}
         launches = dict.fromkeys(DEFAULT_SHAPES, 0)
@@ -1512,6 +1988,11 @@ def main(argv: list[str]) -> int:
                                 "streaming_puts", "transitioned")},
             shapes={name: {shape_name(k): n for k, n in per.items()}
                     for name, per in s3["shapes"].items()}, card=card)}))
+        print(json.dumps({"cluster_phase": dict(
+            {k: clu[k] for k in ("online", "seconds", "bytes", "launches", "nodes", "heal",
+                                 "restored_files", "speedtest_knee", "exits", "libcuda_mapped")},
+            shapes={name: {shape_name(k): n for k, n in per.items()}
+                    for name, per in clu["shapes"].items()}, card=card)}))
     print(json.dumps({"kernel_shapes": {k: v["shapes"] for k, v in kres.items()}}))
     # K2's device time per packet round (n/32 rounds a message), and the
     # hash core's instructions per round in the hot loop

@@ -1,21 +1,25 @@
 """Distributed namespace locks (dsync).
 
 Mirrors MinIO internal/dsync/drwmutex.go + cmd/local-locker.go:
-read/write locks on object names, acquired by broadcasting to all
+read/write locks on object names, acquired by broadcasting to all nodes'
 lockers and succeeding when a quorum grants (write: n/2+1, read: n/2);
-losers release whatever they got and retry.
-
-Only the in-process part is here (``LocalLocker``, ``DRWMutex``,
-``NamespaceLock``): a single node's lockers live in its own process. The
-lock REST server and remote locker come with the cluster layer.
+losers release whatever they got and retry. Each node serves its own
+in-memory lock table over HTTP (the reference runs a dedicated lock grid
+so locks never queue behind data traffic).
 """
 
 from __future__ import annotations
 
+import http.client
 import os
 import threading
 import time
 import uuid as uuidlib
+
+from ..utils import msgpack_lite as msgpack
+from ..server import web
+
+LOCK_PREFIX = "/minio/lock/v1"
 
 from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 
@@ -135,6 +139,117 @@ class LocalLocker:
                 r: {"writer": bool(e["writer"]), "readers": len(e["readers"])}
                 for r, e in self._locks.items()
             }
+
+
+class LockRESTServer:
+    def __init__(self, locker: LocalLocker, token: str):
+        self.locker = locker
+        self.token = token
+
+    def register(self, app: web.Application) -> None:
+        app.router.add_route("POST", LOCK_PREFIX + "/{op}", self.handle)
+
+    async def handle(self, request: web.Request) -> web.Response:
+        if request.headers.get("x-minio-token") != self.token:
+            return web.Response(status=403)
+        op = request.match_info["op"]
+        args = msgpack.unpackb(await request.read(), raw=False)
+        if op == "stats":
+            ok = self.locker.stats()
+        elif op == "force_unlock":
+            ok = self.locker.force_unlock(args["resource"])
+        elif op in ("lock", "unlock", "rlock", "runlock", "refresh"):
+            ok = getattr(self.locker, op)(args["resource"], args.get("uid", ""))
+        else:
+            return web.Response(status=404)
+        return web.Response(body=msgpack.packb(ok))
+
+    def register_grid(self, grid) -> None:
+        """Lock RPCs over the muxed grid. Clients connect on a dedicated
+        "lock" plane websocket, reproducing the reference's separate lock
+        grid (cmd/grid.go:76): lock traffic never queues behind a burst of
+        storage metadata RPCs sharing a connection."""
+
+        def call(payload: bytes) -> bytes:
+            op, resource, uid = msgpack.unpackb(payload, raw=False)
+            if op == "stats":
+                return msgpack.packb(self.locker.stats())
+            if op == "force_unlock":
+                return msgpack.packb(self.locker.force_unlock(resource))
+            if op in ("lock", "unlock", "rlock", "runlock", "refresh"):
+                return msgpack.packb(getattr(self.locker, op)(resource, uid))
+            raise ValueError(f"unknown lock op {op}")
+
+        # inline: pure in-memory table ops must not queue behind the
+        # executor's disk-bound storage work — that would re-couple the
+        # planes server-side
+        grid.register_single("lock.call", call, inline=True)
+
+
+class _RemoteLocker:
+    def __init__(self, host: str, port: int, token: str):
+        self.host, self.port, self.token = host, port, token
+        self._local = threading.local()
+        from .grid import GridGate
+
+        self._gate = GridGate(host, port, token, "lock")
+
+    def _call(self, op: str, resource: str, uid: str) -> bool:
+        # a lock RPC that dies mid-flight may still have been granted; the
+        # TTL expiry (LOCK_TTL) reclaims such orphans on both transports
+        g = self._gate.client()
+        if g is not None:
+            try:
+                return bool(
+                    msgpack.unpackb(
+                        g.call(
+                            "lock.call",
+                            msgpack.packb([op, resource, uid]),
+                            timeout=5.0,
+                        ),
+                        raw=False,
+                    )
+                )
+            except Exception:  # noqa: BLE001 — not granted; try HTTP once
+                self._gate.failed()
+        return self._call_http(op, resource, uid)
+
+    def _call_http(self, op: str, resource: str, uid: str) -> bool:
+        conn = getattr(self._local, "conn", None)
+        try:
+            if conn is None:
+                from ..crypto import tlsconf
+
+                conn = tlsconf.http_connection(self.host, self.port, timeout=5)
+                self._local.conn = conn
+            conn.request(
+                "POST", f"{LOCK_PREFIX}/{op}",
+                body=msgpack.packb({"resource": resource, "uid": uid}),
+                headers={"x-minio-token": self.token},
+            )
+            resp = conn.getresponse()
+            data = resp.read()
+            if resp.status != 200:
+                return False
+            return bool(msgpack.unpackb(data, raw=False))
+        except (http.client.HTTPException, OSError):
+            self._local.conn = None
+            return False
+
+    def lock(self, r, u):
+        return self._call("lock", r, u)
+
+    def unlock(self, r, u):
+        return self._call("unlock", r, u)
+
+    def rlock(self, r, u):
+        return self._call("rlock", r, u)
+
+    def runlock(self, r, u):
+        return self._call("runlock", r, u)
+
+    def refresh(self, r, u):
+        return self._call("refresh", r, u)
 
 
 LOCK_REFRESH_INTERVAL = float(os.environ.get("MINIO_TPU_LOCK_REFRESH_S", "10"))

@@ -741,10 +741,7 @@ class S3Server(
                 self, request, ak, key[len("kms/"):], body
             )
         if bucket == "minio" and key.startswith("admin/"):
-            try:
-                from .admin import handle_admin
-            except ImportError:  # admin.py is not in this package yet
-                raise s3err.NotImplemented_ from None
+            from .admin import handle_admin
 
             if not ak:
                 raise s3err.AccessDenied
@@ -764,6 +761,12 @@ class S3Server(
         if bucket.startswith(".minio.sys"):
             raise s3err.AccessDenied
 
+        if self.buckets.peek(bucket) is None:
+            # the first look at a bucket's metadata reads the store: off the
+            # event loop, which in a cluster must stay free to answer peers'
+            # storage and lock calls (nodes all blocked here at once, each
+            # reading from the others, would wait out the grid's timeouts)
+            await self._run(self.buckets.get, bucket)
         self._authorize(ak, *_route_action(m, bucket, key, q, request.headers),
                         conditions=_route_conditions(q))
 
@@ -1004,6 +1007,7 @@ def make_object_layer(
     own storage RPC server).
     """
     from ..cluster.endpoint import parse_endpoint
+    from ..cluster.storage_rest import StorageRESTClient
     from ..erasure.pools import ServerPools
     from ..erasure.sets import ErasureSets
     from ..storage.format_erasure import init_or_load_formats
@@ -1049,14 +1053,6 @@ def make_object_layer(
                     local_drive_registry[global_idx] = d
                 any_local = True
             else:
-                try:
-                    from ..cluster.storage_rest import StorageRESTClient
-                except ImportError:
-                    raise ValueError(
-                        f"{p}: remote drives need the storage REST plane "
-                        "(cluster/storage_rest.py), which this package does not "
-                        "have yet (ROADMAP Queue 1, cluster/); serve local drives"
-                    ) from None
                 d = StorageRESTClient(
                     ep.host, ep.port, global_idx, internode_token_value, endpoint=p
                 )
@@ -1084,3 +1080,332 @@ def make_server(
     drive_paths: list[str], region: str = "us-east-1", set_size: int = 0
 ) -> S3Server:
     return S3Server(make_object_layer(drive_paths, set_size), region)
+
+
+def main(argv: list[str] | None = None) -> None:
+    import argparse
+
+    # what main() reaches but this package does not have yet is refused
+    # by name, never skipped
+    if os.environ.get("MINIO_TPU_SANITIZE", "0").lower() in ("1", "on", "true", "yes"):
+        raise SystemExit(
+            "MINIO_TPU_SANITIZE: the runtime sanitizer (analysis/sanitizer.py) "
+            "is not in minio_tpu_torch yet; start the server without it"
+        )
+
+    from ..cluster.endpoint import parse_endpoints, remote_nodes
+    from ..cluster.locks import LocalLocker, LockRESTServer, NamespaceLock, _RemoteLocker
+    from ..cluster.storage_rest import StorageRESTServer, internode_token
+    from ..utils import ellipses
+
+    ap = argparse.ArgumentParser(description="minio_tpu_torch S3 server")
+    ap.add_argument(
+        "drives", nargs="+",
+        help="drive dirs, ellipses patterns, or http://host:port/path "
+        "endpoints; each ellipses arg is one pool",
+    )
+    ap.add_argument("--address", default="0.0.0.0:9000")
+    ap.add_argument("--set-size", type=int, default=0, help="drives per erasure set")
+    ap.add_argument("--ftp", type=int, default=0, help="FTP gateway port (0=off)")
+    ap.add_argument("--sftp", type=int, default=0, help="SFTP gateway port (0=off)")
+    ap.add_argument(
+        "--certs-dir",
+        default=os.environ.get("MINIO_TPU_CERTS_DIR", ""),
+        help="directory with public.crt/private.key (+ CAs/); enables TLS "
+        "for the listener and all internode planes when the pair exists",
+    )
+    args = ap.parse_args(argv)
+    for flag, module in (("ftp", "server/ftp.py"), ("sftp", "server/sftp.py")):
+        if getattr(args, flag):
+            raise SystemExit(
+                f"--{flag}: the {flag.upper()} gateway ({module}) is not in "
+                "minio_tpu_torch yet; start the server without it"
+            )
+    host, _, port = args.address.rpartition(":")
+    my_port = int(port)
+
+    # -- SO_REUSEPORT worker pool (server/worker.py) ----------------------
+    # The supervisor path never builds a server: it herds N re-executed
+    # children, each of which lands here again WITH a worker identity.
+    from . import worker as workermod
+
+    wid = workermod.worker_identity()
+    if wid is None:
+        n_workers = workermod.resolve_worker_count()
+        if n_workers > 1:
+            import sys
+
+            probe_eps = parse_endpoints(
+                [p for spec in args.drives for p in ellipses.expand(spec)],
+                my_port,
+            )
+            raise SystemExit(
+                workermod.supervise(
+                    list(argv) if argv is not None else sys.argv[1:],
+                    n_workers, my_port,
+                    distributed=bool(remote_nodes(probe_eps)),
+                )
+            )
+        worker_index, worker_count, worker_port_base = 0, 1, 0
+    else:
+        worker_index, worker_count, worker_port_base = wid
+    worker_siblings = (
+        workermod.sibling_peers(worker_index, worker_count, worker_port_base)
+        if worker_count > 1
+        else []
+    )
+    # the node's device, resolved in a serving process only (the pool's
+    # supervisor above never touches CUDA): the card unless
+    # MINIO_TPU_TORCH_DEVICE or MINIO_TPU_BACKEND asks for another rung. A
+    # host without a card refuses to start here, before any bootstrap retry.
+    from ..erasure import coder as codermod
+
+    if not codermod._use_device():
+        node_device = "host (MINIO_TPU_BACKEND=numpy)"
+    else:
+        from .. import device as devmod
+
+        try:
+            node_device = str(devmod.resolve())
+        except RuntimeError as e:
+            raise SystemExit(str(e)) from None
+    print(f"device: {node_device}", flush=True)
+
+    # TLS: certs-dir with a keypair turns on https + wss everywhere, with
+    # in-place hot reload (reference cmd/common-main.go:942 getTLSConfig)
+    from ..crypto import tlsconf
+
+    cert_mgr = None
+    if args.certs_dir:
+        have_cert = os.path.isfile(os.path.join(args.certs_dir, tlsconf.CERT_FILE))
+        have_key = os.path.isfile(os.path.join(args.certs_dir, tlsconf.KEY_FILE))
+        if have_cert and have_key:
+            cert_mgr = tlsconf.GLOBAL.enable(args.certs_dir)
+        elif have_cert or have_key:
+            # half a keypair is a misconfiguration, not a plain-HTTP
+            # deployment; refuse rather than silently serving cleartext
+            raise SystemExit(
+                f"certs-dir {args.certs_dir}: need BOTH {tlsconf.CERT_FILE} "
+                f"and {tlsconf.KEY_FILE} (found only one)"
+            )
+        else:
+            print(
+                f"certs-dir {args.certs_dir}: no {tlsconf.CERT_FILE}/"
+                f"{tlsconf.KEY_FILE}; serving plain HTTP", flush=True,
+            )
+
+    root_user = os.environ.get("MINIO_ROOT_USER", "minioadmin")
+    root_pass = os.environ.get("MINIO_ROOT_PASSWORD", "minioadmin")
+    token = internode_token(root_user, root_pass)
+
+    all_eps = parse_endpoints(
+        [p for spec in args.drives for p in ellipses.expand(spec)], my_port
+    )
+    peers = remote_nodes(all_eps)
+    distributed = bool(peers)
+
+    registry: dict[int, XLStorage] = {}
+    local_locker = LocalLocker()
+    # sibling workers are lock peers: a write lock needs a quorum of ALL
+    # workers' tables (n/2+1), so two workers mutating the same object
+    # serialize exactly like two cluster nodes would (dsync semantics,
+    # jittered-retry tie-break and all)
+    lockers = [local_locker] + [
+        _RemoteLocker(n.split(":")[0], int(n.split(":")[1]), token)
+        for n in (*worker_siblings, *peers)
+    ]
+    ns_lock = NamespaceLock(lockers)
+
+    srv = S3Server(None)
+    # cluster peers + sibling workers, for admin/trace/profile fan-out
+    # (a worker is just another peer for those planes)
+    srv.peers = worker_siblings + peers
+    srv.worker_index = worker_index
+    srv.worker_count = worker_count
+    srv.worker_peers = worker_siblings
+    srv.worker_port_base = worker_port_base
+    # continuous wall-time attribution (knob-gated, ~19 Hz): scraped as
+    # the /api/diag attribution series; None when MINIO_TPU_PROFILE_CONTINUOUS=0
+    from . import profiling as _profiling
+
+    srv.cprofiler = _profiling.start_continuous_from_env()
+    from ..cluster.grid import GridServer
+
+    storage_srv = StorageRESTServer(registry, token)
+    lock_srv = LockRESTServer(local_locker, token)
+    storage_srv.register(srv.app)
+    lock_srv.register(srv.app)
+    # muxed internode RPC: small storage ops + lock ops share one
+    # websocket per (peer, plane); HTTP routes above stay as fallback
+    grid = GridServer(token)
+    storage_srv.register_grid(grid)
+    lock_srv.register_grid(grid)
+    # cache-invalidation broadcasts ride the same muxed storage plane
+    from ..cache import coherence as cache_coherence
+
+    cache_coherence.register_grid(grid)
+    # sibling workers receive the same synchronous invalidation
+    # broadcasts cluster peers do: a PUT on worker A drops the object
+    # from B's and C's caches before the client sees its 200 (loopback
+    # siblings get a tighter deadline — a crashed worker must not cost
+    # every mutation the cross-node timeout while it restarts)
+    cache_coherence.configure(
+        worker_siblings + peers, token, worker_peers=worker_siblings
+    )
+    # netperf echoes ride the same muxed storage plane; the loopback row
+    # (this node calling itself over the grid) is the stack floor every
+    # peer row is read against
+    from ..diag import netperf as diag_netperf
+
+    diag_netperf.register_grid(grid)
+    diag_netperf.configure(
+        worker_siblings + peers, token, self_addr=f"127.0.0.1:{my_port}"
+    )
+    grid.register(srv.app)
+    from ..cluster import bootstrap as bootmod
+
+    my_syscfg = bootmod.system_config(sorted(str(e) for e in all_eps), salt=token)
+    bootmod.BootstrapRESTServer(my_syscfg, token).register(srv.app)
+
+    async def bootstrap():
+        import asyncio
+
+        loop = asyncio.get_running_loop()
+
+        def build():
+            # in a worker pool only worker 0 may mint a fresh format.json
+            # (the others retry below until the layout exists on disk)
+            return make_object_layer(
+                args.drives, args.set_size, my_port, token, registry, ns_lock,
+                allow_mint=None if worker_count == 1 else worker_index == 0,
+            )
+
+        if peers:
+            # cross-node config consistency check (reference
+            # cmd/bootstrap-peer-server.go verifyServerSystemConfig):
+            # catches divergent drive lists / MINIO_* env before serving
+            problems = await loop.run_in_executor(
+                None, bootmod.verify_peers, my_syscfg, peers, token
+            )
+            for p in problems:
+                print(f"bootstrap config check: {p}", flush=True)
+
+        last = None
+        for _ in range(180):
+            try:
+                store = await loop.run_in_executor(None, build)
+                # set_store does storage IO (IAM/bucket-config loads, incl.
+                # remote RPC) — keep it off the event loop, which must stay
+                # responsive for peers' storage/lock RPCs
+                await loop.run_in_executor(None, srv.set_store, store)
+                print(
+                    f"object layer online: {len(store.pools)} pool(s), "
+                    f"{len(store.disks)} drives, distributed={distributed}",
+                    flush=True,
+                )
+                return
+            except asyncio.CancelledError:
+                raise  # server shutdown mid-bootstrap
+            except Exception as e:  # noqa: BLE001 — peers may still be booting
+                last = e
+                await asyncio.sleep(1)
+        print(f"bootstrap failed: {last}", flush=True)
+        os._exit(1)  # a task-level SystemExit would leave run_app serving 503s
+
+    async def on_start(app):
+        # background task: peers bootstrap against each other's storage
+        # RPC, so the listener must come up FIRST (on_startup blocks it)
+        import asyncio
+
+        app["bootstrap"] = asyncio.create_task(bootstrap())
+
+    srv.app.on_startup.append(on_start)
+    # explicit runner: read_bufsize lifts the front's 64 KiB StreamReader
+    # watermark, which otherwise pause/resumes the transport 16x per MiB on
+    # large streaming PUTs
+    import asyncio as _asyncio
+    import signal as _signal
+
+    async def _serve():
+        runner = web.AppRunner(
+            srv.app, read_bufsize=int(
+                os.environ.get("MINIO_TPU_HTTP_READBUF", str(4 << 20))
+            ),
+        )
+        await runner.setup()
+        site = web.TCPSite(
+            runner, host or "0.0.0.0", my_port,
+            ssl_context=cert_mgr.ctx if cert_mgr else None,
+            # worker pool: every worker binds the SAME port; the kernel
+            # load-balances accepted connections across them
+            reuse_port=True if worker_count > 1 else None,
+        )
+        await site.start()
+        if worker_count > 1:
+            # per-worker loopback control listener: SO_REUSEPORT makes
+            # the shared port land on an ARBITRARY worker, so siblings
+            # (coherence broadcasts, lock RPCs, admin/metrics fan-out)
+            # address each worker here. Same app, same auth.
+            ctrl = web.TCPSite(
+                runner, "127.0.0.1",
+                workermod.control_port(worker_port_base, worker_index),
+                ssl_context=cert_mgr.ctx if cert_mgr else None,
+            )
+            await ctrl.start()
+            print(
+                f"worker {worker_index}/{worker_count} serving "
+                f"{args.address} (shared), control port "
+                f"{workermod.control_port(worker_port_base, worker_index)}",
+                flush=True,
+            )
+        cert_watcher = None
+        if cert_mgr is not None:
+            print(f"serving https on {args.address}", flush=True)
+
+            async def _watch_certs():
+                while True:
+                    await _asyncio.sleep(2.0)
+                    if cert_mgr.maybe_reload(min_interval=0.0):
+                        # internode dialers must re-anchor trust too when
+                        # the deployment pins the shared public.crt
+                        tlsconf.GLOBAL.refresh_client_context()
+                        print("TLS certificate reloaded", flush=True)
+
+            # keep a strong reference: asyncio tasks are weakly held and
+            # an unreferenced watcher would be GC-collected mid-flight
+            cert_watcher = _asyncio.get_running_loop().create_task(
+                _watch_certs()
+            )
+        stop = _asyncio.Event()
+        loop = _asyncio.get_running_loop()
+        for sig in (_signal.SIGINT, _signal.SIGTERM):
+            try:
+                loop.add_signal_handler(sig, stop.set)
+            except NotImplementedError:  # non-unix
+                pass
+        await stop.wait()
+        if cert_watcher is not None:
+            cert_watcher.cancel()
+        # teardown order matters: stop the background planes FIRST (the
+        # scanner/heal threads broadcast invalidations, which would
+        # re-dial the grid right after we close it), THEN close our
+        # OUTGOING grid connections — the sibling/peer server holds a
+        # parked websocket handler per connection and its graceful drain
+        # waits for ours to close (two pool workers stopping together
+        # would otherwise stall each other's cleanup for the full
+        # shutdown timeout; the supervisor's SIGKILL grace is the
+        # backstop for a mid-sweep straggler that re-dials anyway)
+        srv.close()  # stop IAM refresh/watch + scanner threads
+        from ..cluster import grid as gridmod
+
+        gridmod.close_shared_clients()
+        await runner.cleanup()  # close listeners, drain in-flight requests
+
+    try:
+        _asyncio.run(_serve())
+    except KeyboardInterrupt:
+        pass
+
+
+if __name__ == "__main__":
+    main()

@@ -981,6 +981,26 @@ def _g_api_tpu(server) -> list[str]:
          "Per-dispatch device execute time")
     _fmt(out, "minio_tpu_fused_dispatches_total", "counter",
          [({}, ds.get("fused", 0))])
+    # the hand kernels' launches in this process, as each wrapper counts
+    # them (calls on CPU tensors run the plain versions and do not count)
+    from ..ops import bitrot_cuda, fused_cuda, rs_cuda
+
+    _fmt(out, "minio_tpu_kernel_launches_total", "counter",
+         [({"kernel": "fused_encode_hash"}, fused_cuda.encode_launches),
+          ({"kernel": "fused_decode_hash"}, fused_cuda.decode_launches),
+          ({"kernel": "hh_chain"}, bitrot_cuda.launches),
+          ({"kernel": "gf_apply"}, rs_cuda.launches)],
+         "CUDA kernel launches by the port's wrappers")
+    # the same launches by shape: each wrapper's shape key as a JSON list
+    # (the items copied at once: the dispatcher's thread adds to them)
+    shapes = [("fused_encode_hash" if k[0] == "encode" else "fused_decode_hash", k, n)
+              for k, n in list(fused_cuda.launch_shapes.items())]
+    shapes += [("hh_chain", k, n) for k, n in list(bitrot_cuda.launch_shapes.items())]
+    shapes += [("gf_apply", k, n) for k, n in list(rs_cuda.launch_shapes.items())]
+    _fmt(out, "minio_tpu_kernel_launch_shapes_total", "counter",
+         [({"kernel": name, "shape": json.dumps(k, separators=(",", ":"))}, n)
+          for name, k, n in sorted(shapes, key=repr)],
+         "CUDA kernel launches by kernel and shape key")
     _fmt(out, "minio_tpu_fused_failures_total", "counter",
          [({}, ds.get("fused_failures", 0))])
     _fmt(out, "minio_tpu_dispatch_bg_forced_blocks_total", "counter",

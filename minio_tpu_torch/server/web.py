@@ -2,12 +2,14 @@
 S3 handlers use, so they run on a host without aiohttp.
 
 Surface: ``Application`` (routes, the ``on_response_prepare`` /
-``on_startup`` / ``on_cleanup`` signals, item storage), ``AppRunner`` and
-``TCPSite``; ``Request`` (case-insensitive multi-valued ``headers``,
+``on_startup`` / ``on_shutdown`` / ``on_cleanup`` signals, item storage),
+``AppRunner`` and ``TCPSite``; ``Request`` (case-insensitive multi-valued ``headers``,
 ``method``, decoded ``path`` and ``match_info``, ``rel_url`` with a
 multi-valued ``query`` and the raw path and query string, ``read()``,
 ``content.read(n)``, ``body_exists``, ``transport``, ``remote`` and item
-storage); ``Response``, ``StreamResponse`` and ``json_response``.
+storage); ``Response``, ``StreamResponse`` and ``json_response``; and a
+server-side RFC 6455 ``WebSocketResponse`` with ``WSMsgType`` (the
+internode grid's transport).
 
 On the wire: keep-alive, ``Expect: 100-continue``, request bodies by
 Content-Length or chunked transfer coding, chunked responses when no
@@ -26,21 +28,28 @@ those two, so ``/b/a%2Fb`` gives the key ``a/b``.
 from __future__ import annotations
 
 import asyncio
+import base64
+import binascii
 import codecs
+import enum
+import hashlib
 import http
 import json
 import re
 import socket
+import struct
 import sys
 import threading
 import traceback
 from collections.abc import MutableMapping
 from email.utils import formatdate
+from typing import NamedTuple
 
 __all__ = [
     "AppRunner",
     "Application",
     "CIMultiDict",
+    "HTTPBadRequest",
     "HTTPException",
     "HTTPRequestEntityTooLarge",
     "MultiDict",
@@ -48,6 +57,9 @@ __all__ = [
     "Response",
     "StreamResponse",
     "TCPSite",
+    "WSMessage",
+    "WSMsgType",
+    "WebSocketResponse",
     "json_response",
     "serve_in_thread",
 ]
@@ -257,6 +269,10 @@ class HTTPException(Exception):
         return Response(status=self.status_code, text=self.text)
 
 
+class HTTPBadRequest(HTTPException):
+    status_code = 400
+
+
 class HTTPRequestEntityTooLarge(HTTPException):
     status_code = 413
 
@@ -402,6 +418,12 @@ class _State(MutableMapping):
     def __len__(self) -> int:
         return len(self._state)
 
+    # identity, not contents, as aiohttp's objects compare (they go into sets)
+    def __eq__(self, other) -> bool:
+        return self is other
+
+    __hash__ = object.__hash__
+
 
 class Request(_State):
     def __init__(self, app, method: str, target: str, version: tuple[int, int],
@@ -415,6 +437,7 @@ class Request(_State):
         self.rel_url = URL(raw_path, raw_query)
         self.headers = headers
         self.content = body
+        self._reader = body._r
         self._writer = writer
         self.match_info: dict[str, str] = {}
         self._state: dict = {}
@@ -656,6 +679,353 @@ class Response(StreamResponse):
         await self._writer.drain()
 
 
+# -- websockets (RFC 6455, server side) -----------------------------------------
+
+WS_GUID = b"258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+
+
+class WSMsgType(enum.IntEnum):
+    CONTINUATION = 0x0
+    TEXT = 0x1
+    BINARY = 0x2
+    PING = 0x9
+    PONG = 0xA
+    CLOSE = 0x8
+    CLOSING = 0x100  # the receive side after a close began (aiohttp's)
+    CLOSED = 0x101
+    ERROR = 0x102
+
+
+class WSMessage(NamedTuple):
+    type: WSMsgType
+    data: object
+    extra: str | None
+
+
+# close codes a peer may send below 3000 (aiohttp's WSCloseCode)
+_CLOSE_CODES = frozenset({1000, 1001, 1002, 1003, 1006, 1007, 1008, 1009, 1010,
+                          1011, 1012, 1013, 1014})
+WS_PROTOCOL_ERROR = 1002
+WS_INVALID_TEXT = 1007
+WS_MESSAGE_TOO_BIG = 1009
+
+
+class _WSError(Exception):
+    def __init__(self, code: int, message: str):
+        super().__init__(message)
+        self.code = code
+
+
+def _ws_mask(data: bytes, mask: bytes) -> bytes:
+    n = len(data)
+    if n == 0:
+        return b""
+    key = int.from_bytes((mask * ((n + 3) // 4))[:n], "little")
+    return (int.from_bytes(data, "little") ^ key).to_bytes(n, "little")
+
+
+def _ws_header(opcode: int, n: int) -> bytes:
+    if n < 126:
+        return struct.pack("!BB", 0x80 | opcode, n)
+    if n < 65536:
+        return struct.pack("!BBH", 0x80 | opcode, 126, n)
+    return struct.pack("!BBQ", 0x80 | opcode, 127, n)
+
+
+class WebSocketResponse(StreamResponse):
+    """The server end of a websocket, as aiohttp's behaves without
+    extensions: ``prepare`` answers the upgrade (400 on a bad handshake)
+    and hands the connection over, ``receive`` (or ``async for``) yields
+    TEXT and BINARY messages, answers pings, replies to a close and stops.
+    A protocol error (reserved bits, a fragmented or long control frame, a
+    stray continuation, a bad close code) closes with 1002, bad UTF-8 text
+    with 1007, a message of ``max_msg_size`` bytes or more with 1009; each
+    yields one ERROR message first. With ``heartbeat`` a ping goes out
+    after that many idle seconds, and no frame within half of it closes
+    the connection. Client frames may be masked or not, as aiohttp
+    accepts both. No extension is negotiated (no compression)."""
+
+    def __init__(self, *, timeout: float = 10.0, heartbeat: float | None = None,
+                 max_msg_size: int = 4 * 1024 * 1024):
+        super().__init__(status=101)
+        self._timeout = timeout
+        self._heartbeat = heartbeat
+        self._max_msg_size = max_msg_size
+        self._reader: asyncio.StreamReader | None = None
+        self._loop: asyncio.AbstractEventLoop | None = None
+        self._closed = False
+        self._closing = False
+        self._waiting = False
+        self._exception: BaseException | None = None  # why the heartbeat closed
+        self._partial = bytearray()
+        self._partial_op: int | None = None
+        self._hb: asyncio.TimerHandle | None = None
+        self._pong_wait: asyncio.TimerHandle | None = None
+
+    def _handshake(self, request: Request) -> None:
+        h = request.headers
+        if h.get("Upgrade", "").lower().strip() != "websocket":
+            raise HTTPBadRequest(
+                f"No WebSocket UPGRADE hdr: {h.get('Upgrade')}\n"
+                ' Can "Upgrade" only to "WebSocket".')
+        if "upgrade" not in h.get("Connection", "").lower():
+            raise HTTPBadRequest(f"No CONNECTION upgrade hdr: {h.get('Connection')}")
+        version = h.get("Sec-WebSocket-Version", "")
+        if version not in ("13", "8", "7"):
+            raise HTTPBadRequest(f"Unsupported version: {version}")
+        key = h.get("Sec-WebSocket-Key")
+        try:
+            if not key or len(base64.b64decode(key)) != 16:
+                raise HTTPBadRequest(f"Handshake error: {key!r}")
+        except binascii.Error:
+            raise HTTPBadRequest(f"Handshake error: {key!r}") from None
+        accept = base64.b64encode(hashlib.sha1(key.encode() + WS_GUID).digest()).decode()
+        self._headers["Upgrade"] = "websocket"
+        self._headers["Connection"] = "upgrade"
+        self._headers["Sec-WebSocket-Accept"] = accept
+
+    async def prepare(self, request: Request):
+        if self._writer is not None:
+            return self._writer
+        self._handshake(request)
+        self.force_close()  # the connection serves no more HTTP
+        writer = await super().prepare(request)
+        await writer.drain()
+        self._reader = request._reader
+        self._loop = asyncio.get_running_loop()
+        self._reset_heartbeat()
+        return writer
+
+    # -- sending --
+
+    async def _send(self, opcode: int, payload) -> None:
+        if self._writer is None:
+            raise RuntimeError("Call .prepare() first")
+        if self._closed and opcode != WSMsgType.CLOSE:
+            raise ConnectionResetError("Cannot write to closing transport")
+        payload = bytes(payload)
+        # one synchronous pair of writes: frames of concurrent senders
+        # never interleave
+        self._writer.write(_ws_header(opcode, len(payload)))
+        self._writer.write(payload)
+        await self._writer.drain()
+
+    async def send_bytes(self, data) -> None:
+        if not isinstance(data, (bytes, bytearray, memoryview)):
+            raise TypeError(f"data argument must be byte-ish ({type(data)!r})")
+        await self._send(WSMsgType.BINARY, data)
+
+    async def send_str(self, data: str) -> None:
+        if not isinstance(data, str):
+            raise TypeError(f"data argument must be str ({type(data)!r})")
+        await self._send(WSMsgType.TEXT, data.encode("utf-8"))
+
+    async def pong(self, message: bytes = b"") -> None:
+        await self._send(WSMsgType.PONG, message)
+
+    async def write(self, data) -> None:
+        raise RuntimeError("Cannot call .write() for websocket")
+
+    async def write_eof(self, data: bytes = b"") -> None:
+        if self._eof_sent:
+            return
+        if self._writer is None:
+            raise RuntimeError("Response has not been started")
+        await self.close()
+        self._eof_sent = True
+
+    # -- heartbeat --
+
+    def _cancel_heartbeat(self) -> None:
+        for h in (self._hb, self._pong_wait):
+            if h is not None:
+                h.cancel()
+        self._hb = self._pong_wait = None
+
+    def _reset_heartbeat(self) -> None:
+        if self._heartbeat is None or self._closed:
+            return
+        self._cancel_heartbeat()
+        self._hb = self._loop.call_later(self._heartbeat, self._send_heartbeat)
+
+    def _send_heartbeat(self) -> None:
+        self._hb = None
+        if self._closed:
+            return
+        self._pong_wait = self._loop.call_later(self._heartbeat / 2.0, self._pong_not_received)
+        try:
+            self._writer.write(_ws_header(WSMsgType.PING, 0))
+        except (ConnectionError, RuntimeError):
+            pass  # the pong deadline closes the connection
+
+    def _pong_not_received(self) -> None:
+        self._pong_wait = None
+        if self._closed:
+            return
+        self._exception = asyncio.TimeoutError(
+            f"No PONG received after {self._heartbeat / 2.0} seconds")
+        self._closed = True
+        self._cancel_heartbeat()
+        self._writer.transport.close()  # a waiting receive wakes with ERROR
+
+    # -- receiving --
+
+    async def _frame(self) -> tuple[bool, int, bytes]:
+        r = self._reader
+        b0, b1 = await r.readexactly(2)
+        fin, opcode = bool(b0 & 0x80), b0 & 0x0F
+        if b0 & 0x70:
+            raise _WSError(WS_PROTOCOL_ERROR, "Received frame with non-zero reserved bits")
+        if opcode > 0x7 and not fin:
+            raise _WSError(WS_PROTOCOL_ERROR, "Received fragmented control frame")
+        n = b1 & 0x7F
+        if opcode > 0x7 and n > 125:
+            raise _WSError(WS_PROTOCOL_ERROR,
+                           "Control frame payload cannot be larger than 125 bytes")
+        if n == 126:
+            (n,) = struct.unpack("!H", await r.readexactly(2))
+        elif n == 127:
+            (n,) = struct.unpack("!Q", await r.readexactly(8))
+        mask = await r.readexactly(4) if b1 & 0x80 else b""
+        if (self._max_msg_size and opcode <= WSMsgType.BINARY
+                and len(self._partial) + n >= self._max_msg_size):
+            # refused once the frame is read, as aiohttp refuses it (so the
+            # close reaches the peer before FIN, not behind an RST), but its
+            # payload is dropped as it arrives instead of buffered
+            left = n
+            while left:
+                left -= len(await r.readexactly(min(left, 1 << 16)))
+            raise _WSError(WS_MESSAGE_TOO_BIG,
+                           f"Message size {len(self._partial) + n} exceeds limit "
+                           f"{self._max_msg_size}")
+        payload = await r.readexactly(n) if n else b""
+        return fin, opcode, _ws_mask(payload, mask) if mask else payload
+
+    async def _message(self) -> WSMessage:
+        while True:
+            fin, op, payload = await self._frame()
+            if op in (WSMsgType.CONTINUATION, WSMsgType.TEXT, WSMsgType.BINARY):
+                if op == WSMsgType.CONTINUATION and self._partial_op is None:
+                    raise _WSError(WS_PROTOCOL_ERROR,
+                                   "Continuation frame for non started message")
+                if not fin:
+                    if op != WSMsgType.CONTINUATION:
+                        self._partial_op = op
+                    self._partial += payload
+                    continue
+                if op == WSMsgType.CONTINUATION:
+                    op, self._partial_op = self._partial_op, None
+                elif self._partial:
+                    raise _WSError(WS_PROTOCOL_ERROR,
+                                   "The opcode in non-fin frame is expected to be "
+                                   f"zero, got {op!r}")
+                data = bytes(self._partial) + payload if self._partial else payload
+                self._partial.clear()
+                if op == WSMsgType.TEXT:
+                    try:
+                        return WSMessage(WSMsgType.TEXT, data.decode("utf-8"), "")
+                    except UnicodeDecodeError:
+                        raise _WSError(WS_INVALID_TEXT, "Invalid UTF-8 text message") from None
+                return WSMessage(WSMsgType.BINARY, data, "")
+            if op == WSMsgType.CLOSE:
+                if len(payload) >= 2:
+                    (code,) = struct.unpack("!H", payload[:2])
+                    if code < 3000 and code not in _CLOSE_CODES:
+                        raise _WSError(WS_PROTOCOL_ERROR, f"Invalid close code: {code}")
+                    try:
+                        return WSMessage(WSMsgType.CLOSE, code, payload[2:].decode("utf-8"))
+                    except UnicodeDecodeError:
+                        raise _WSError(WS_INVALID_TEXT, "Invalid UTF-8 text message") from None
+                if payload:
+                    raise _WSError(WS_PROTOCOL_ERROR, f"Invalid close frame: {payload!r}")
+                return WSMessage(WSMsgType.CLOSE, 0, "")
+            if op == WSMsgType.PING:
+                return WSMessage(WSMsgType.PING, payload, "")
+            if op == WSMsgType.PONG:
+                return WSMessage(WSMsgType.PONG, payload, "")
+            raise _WSError(WS_PROTOCOL_ERROR, f"Unexpected opcode={op!r}")
+
+    async def receive(self) -> WSMessage:
+        if self._reader is None:
+            raise RuntimeError("Call .prepare() first")
+        while True:
+            if self._waiting:
+                raise RuntimeError("Concurrent call to receive() is not allowed")
+            if self._closed:
+                return WSMessage(WSMsgType.CLOSED, None, None)
+            if self._closing:
+                return WSMessage(WSMsgType.CLOSING, None, None)
+            self._waiting = True
+            try:
+                msg = await self._message()
+            except _WSError as e:
+                self._closing = True  # the stream is mid-frame: no more reads
+                await self.close(code=e.code)
+                return WSMessage(WSMsgType.ERROR, e, None)
+            except (asyncio.IncompleteReadError, ConnectionError, OSError) as e:
+                if self._exception is not None:  # the heartbeat gave up
+                    return WSMessage(WSMsgType.ERROR, self._exception, None)
+                if self._closed:  # close() from another task
+                    return WSMessage(WSMsgType.CLOSING, None, None)
+                self._closing = True
+                await self.close()
+                return WSMessage(WSMsgType.CLOSED, None, None)
+            finally:
+                self._waiting = False
+            self._reset_heartbeat()
+            if msg.type == WSMsgType.CLOSE:
+                self._closing = True
+                await self.close(drain=False)
+                return msg
+            if msg.type == WSMsgType.PING:
+                await self.pong(msg.data)
+                continue
+            if msg.type == WSMsgType.PONG:
+                continue
+            return msg
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self) -> WSMessage:
+        msg = await self.receive()
+        if msg.type in (WSMsgType.CLOSE, WSMsgType.CLOSING, WSMsgType.CLOSED):
+            raise StopAsyncIteration
+        return msg
+
+    async def close(self, *, code: int = 1000, message: bytes = b"",
+                    drain: bool = True) -> bool:
+        """Send a close frame. When this side starts the close and no
+        receive is waiting, wait up to ``timeout`` for the peer's close
+        frame, as aiohttp does; then close the connection."""
+        if self._writer is None:
+            raise RuntimeError("Call .prepare() first")
+        if self._closed:
+            return False
+        self._closed = True
+        self._cancel_heartbeat()
+        try:
+            self._writer.write(_ws_header(WSMsgType.CLOSE, 2 + len(message)))
+            self._writer.write(struct.pack("!H", code) + message)
+            if drain:
+                await self._writer.drain()
+        except (ConnectionError, RuntimeError):
+            self._writer.transport.close()
+            return True
+        if not (self._closing or self._waiting):
+            try:
+                async with asyncio.timeout(self._timeout):
+                    while (await self._message()).type != WSMsgType.CLOSE:
+                        pass
+            except asyncio.CancelledError:
+                self._writer.transport.close()
+                raise
+            except Exception:  # noqa: BLE001 — the peer went away instead
+                pass
+        self._writer.transport.close()
+        return True
+
+
 def json_response(data, *, status: int = 200, headers=None) -> Response:
     return Response(text=json.dumps(data), status=status, headers=headers,
                     content_type="application/json")
@@ -677,22 +1047,41 @@ def _route_regex(path: str) -> re.Pattern:
 
 
 class _Router:
+    """Routes indexed as aiohttp indexes them: by the static part of their
+    path. A request walks its path from the whole down to ``/`` and takes
+    the first route that matches at the longest prefix, in registration
+    order within one prefix; so ``/minio/grid/v1`` wins over a catch-all
+    ``/{bucket}/{key:.*}`` registered before it."""
+
     def __init__(self):
-        self._routes: list[tuple[str, re.Pattern, object]] = []
+        self._index: dict[str, list[tuple[str, re.Pattern, object]]] = {}
+
+    @staticmethod
+    def _key(path: str) -> str:
+        if "{" in path:
+            path = path.partition("{")[0].rpartition("/")[0]
+        return path.rstrip("/") or "/"
 
     def add_route(self, method: str, path: str, handler) -> None:
-        self._routes.append((method.upper(), _route_regex(path), handler))
+        self._index.setdefault(self._key(path), []).append(
+            (method.upper(), _route_regex(path), handler))
 
     def resolve(self, method: str, path_safe: str):
         """(handler, match_info), or (None, status) when no route fits."""
         allowed = False
-        for m, rx, handler in self._routes:
-            mt = rx.fullmatch(path_safe)
-            if mt is None:
-                continue
-            if m in ("*", method):
-                return handler, {k: _unquote_path_safe(v) for k, v in mt.groupdict().items()}
-            allowed = True
+        part = path_safe
+        while part:
+            for m, rx, handler in self._index.get(part, ()):
+                mt = rx.fullmatch(path_safe)
+                if mt is None:
+                    continue
+                if m in ("*", method):
+                    return handler, {k: _unquote_path_safe(v)
+                                     for k, v in mt.groupdict().items()}
+                allowed = True
+            if part == "/":
+                break
+            part = part.rpartition("/")[0] or "/"
         return None, 405 if allowed else 404
 
 
@@ -702,6 +1091,7 @@ class Application(_State):
         self.router = _Router()
         self.on_response_prepare: list = []
         self.on_startup: list = []
+        self.on_shutdown: list = []
         self.on_cleanup: list = []
         self._state: dict = {}
 
@@ -864,9 +1254,11 @@ def _server_error() -> Response:
 
 
 class AppRunner:
-    def __init__(self, app: Application, *, read_bufsize: int = 2 ** 16):
+    def __init__(self, app: Application, *, read_bufsize: int = 2 ** 16,
+                 shutdown_timeout: float = SHUTDOWN_S):
         self.app = app
         self.read_bufsize = int(read_bufsize)
+        self.shutdown_timeout = shutdown_timeout
         self._sites: list[TCPSite] = []
         self._conns: set[_Conn] = set()
         self._tasks: set[asyncio.Task] = set()
@@ -895,17 +1287,21 @@ class AppRunner:
                 self._tasks.discard(task)
 
     async def cleanup(self) -> None:
-        """Close the listeners and idle connections, give requests in
-        flight ``SHUTDOWN_S`` to finish, then run on_cleanup."""
+        """Close the listeners, run on_shutdown (which closes long-lived
+        connections such as websockets), close idle connections, give
+        requests in flight ``shutdown_timeout`` to finish, then run
+        on_cleanup."""
         self._closing = True
         for s in list(self._sites):
             await s.stop()
+        for hook in self.app.on_shutdown:
+            await hook(self.app)
         for c in list(self._conns):
             if not c.busy:
                 c.writer.close()
         pending = [t for t in self._tasks if not t.done()]
         if pending:
-            _, late = await asyncio.wait(pending, timeout=SHUTDOWN_S)
+            _, late = await asyncio.wait(pending, timeout=self.shutdown_timeout)
             for t in late:
                 t.cancel()
         for hook in self.app.on_cleanup:

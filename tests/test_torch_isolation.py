@@ -47,23 +47,17 @@ def test_no_forbidden_imports(path):
 # it is reached only off the ported paths (ROADMAP Queue 1 names when each
 # module comes)
 MISSING_OK = {
-    ("cache/coherence.py", "minio_tpu_torch.cluster.grid"):
-        "peer cache coherence, only with cluster peers configured (cluster/)",
-    ("server/app.py", "minio_tpu_torch.cluster.storage_rest"):
-        "remote drive endpoints only; a remote endpoint fails with a named "
-        "error until cluster/ lands",
-    ("server/app.py", "minio_tpu_torch.server.admin"):
-        "the /minio/admin/ plane and server_info/storage_info; until admin.py "
-        "lands those requests answer a 501 NotImplemented S3 error",
     ("server/app.py", "minio_tpu_torch.server.console"):
         "the embedded console page at /minio/console; a 501 NotImplemented "
         "S3 error until console.py lands",
     ("server/metrics.py", "minio_tpu_torch.analysis"):
         "the v3 /api/sanitizer group (analysis/sanitizer.py is not ported)",
-    ("server/metrics.py", "minio_tpu_torch.cluster.grid"):
-        "the v3 /system/network/internode group (the grid comes with cluster/)",
-    ("server/metrics.py", "minio_tpu_torch.diag"):
-        "the v3 /api/diag group and the diag series (diag/ is not ported)",
+    ("server/admin.py", "minio_tpu_torch.analysis"):
+        "admin sanitizer/status; it answers a named 501 NotImplemented until "
+        "analysis/sanitizer.py lands",
+    ("diag/healthinfo.py", "minio_tpu_torch.analysis"):
+        "the healthinfo bundle (the knob registry and the sanitizer's "
+        "status); admin healthinfo answers a named 501 until analysis/ lands",
 }
 
 
@@ -122,6 +116,11 @@ def test_import_pulls_in_no_jax():
         "import minio_tpu_torch.s3select.engine, minio_tpu_torch.crypto.sse\n"
         "import minio_tpu_torch.iam.oidc, minio_tpu_torch.replication.site\n"
         "import minio_tpu_torch.events.targets, minio_tpu_torch.cluster.endpoint\n"
+        "import minio_tpu_torch.cluster.grid, minio_tpu_torch.cluster.storage_rest\n"
+        "import minio_tpu_torch.cluster.locks, minio_tpu_torch.cluster.bootstrap\n"
+        "import minio_tpu_torch.crypto.tlsconf, minio_tpu_torch.diag\n"
+        "import minio_tpu_torch.server.admin, minio_tpu_torch.server.profiling\n"
+        "import minio_tpu_torch.server.worker\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
     )
@@ -140,6 +139,8 @@ def test_server_import_pulls_in_no_optional_package():
         "import minio_tpu_torch.batch.jobs, minio_tpu_torch.s3select.engine\n"
         "import minio_tpu_torch.crypto.sse, minio_tpu_torch.crypto.kes\n"
         "import minio_tpu_torch.server.sts, minio_tpu_torch.iam.oidc\n"
+        "import minio_tpu_torch.server.admin, minio_tpu_torch.diag\n"
+        "import minio_tpu_torch.cluster.grid, minio_tpu_torch.cluster.storage_rest\n"
         f"bad = sorted({{m.split('.')[0] for m in sys.modules}} & set({sorted(FORBIDDEN | OPTIONAL)!r}))\n"
         "print(bad)\n"
     )

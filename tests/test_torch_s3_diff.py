@@ -194,12 +194,11 @@ def _cors_and_auth(c):
     return out
 
 
-def _admin_and_console(c):
-    """What the port answers today where it has no module yet: an S3
-    error with an XML body (the JAX server answers these planes)."""
-    return [c.request("GET", "/minio/admin/v3/info"),
-            c.request("POST", "/minio/admin/v3/heal/b"),
-            c.request("GET", "/minio/console"),
+def _console(c):
+    """What the port answers where it has no module yet: an S3 error with
+    an XML body (the JAX server answers this plane). The admin plane is
+    ported; tests/test_torch_admin.py holds it to the reference."""
+    return [c.request("GET", "/minio/console"),
             c.request("HEAD", "/minio/console/index.html")]
 
 
@@ -217,7 +216,7 @@ def test_port_answers_like_the_reference(servers, name):
 
 
 def test_unported_planes_answer_an_s3_error(servers):
-    for r in _admin_and_console(_clients(servers)[1]):
+    for r in _console(_clients(servers)[1]):
         assert r.status == 501
         assert r.headers["content-type"] == "application/xml"
         assert not r.body or b"<Code>NotImplemented</Code>" in r.body
@@ -228,6 +227,7 @@ def test_unported_planes_answer_an_s3_error(servers):
     ("metrics/v3/api/tpu", "minio_tpu_dispatch_blocks_total"),
     ("metrics/v3/api/tpu", "minio_tpu_dispatch_total"),
     ("metrics/v3/api/requests", "minio_api_requests_total"),
+    ("metrics/v3/api/tpu", "minio_tpu_kernel_launches_total"),
 ])
 def test_metrics_keep_the_reference_series(servers, monkeypatch, path, series):
     import urllib.request
