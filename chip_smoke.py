@@ -81,8 +81,25 @@ Phases (any failure raises and the script exits non-zero):
    report them on `/minio/metrics/v3/api/tpu`, in all and by shape
    (``minio_tpu_kernel_launch_shapes_total``); node 3's are read just
    before it is killed. Any failure prints the tail of that node's log.
-7. Hold each kernel against its plain PyTorch version on the card, byte
-   for byte, at every shape phases 2-6 launched it at, and a sample
+7. The alternate frontends, after MinIO's "File Transfer Protocol
+   (FTP/SFTP)": one `python -m minio_tpu_torch.server --ftp F --sftp S`
+   process over 16 drives on the card, STANDARD = EC:8, one ed25519 key
+   in MINIO_SFTP_AUTHORIZED_KEYS, the server's default read cache.
+   Through SFTP (the port's SSH client role and ``SFTPClient`` below,
+   32 KiB requests 16 deep): password and publickey auth (a wrong
+   password and an unlisted key refused), mkdir of a bucket, 4 concurrent
+   sessions each writing one 64 MiB file (K1 encode on close), each read
+   back through SFTP and through S3 (md5 equal to the ETag), stat,
+   readdir, rename, remove. Through ``ftplib``: 4 concurrent 64 MiB STORs
+   (K1 encode), their RETRs, LIST, DELE. A degraded read: an object no
+   read has touched loses its directory on the 8 drives that hold its
+   data shards, then SFTP and FTP RETR read it back (K1 decode; the
+   launches each took are printed). The console page unauthenticated with
+   the reference's headers. The node's counts (zero at its start, read
+   from its scrape just after): K1 encode and decode launched, no fault
+   counter moved; SIGTERM, exit 0.
+8. Hold each kernel against its plain PyTorch version on the card, byte
+   for byte, at every shape phases 2-7 launched it at, and a sample
    against the numpy reference codec; time both with CUDA events (K1's
    plain version gives its outputs for all K1 shapes from one call, its
    time going to a loop over a row's packets whatever the rows, and is
@@ -104,7 +121,7 @@ Phases (any failure raises and the script exits non-zero):
    rows at odd addresses, and aligned rows of the odd rows' whole-packet
    length), whose time per packet round the script compares; K3 at the
    8x24 composite, B=256, on rows at odd addresses (h = 43,691) and on
-   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-6
+   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-7
    are skipped and the main path's shapes are taken from
    ``DEFAULT_SHAPES``.
 
@@ -112,7 +129,10 @@ Prints the dispatcher stats, one ``s3_phase`` JSON line (per-step
 seconds, bytes, launches and shapes, dispatcher stats, the scraped
 series), one ``cluster_phase`` line (per-step seconds, each node's
 dispatches, blocks, launches and fault counters, the heal, the speedtest
-rows, exit codes), K2's device time per packet round, the hash
+rows, exit codes), one ``gateway_phase`` line (per-step seconds, bytes
+by protocol, the node's launches by shape and dispatcher counts, the K1
+decode launches of each degraded read, the console's headers, the exit
+code), K2's device time per packet round, the hash
 core's SASS instructions per round (``cuobjdump``, where the toolkit has
 it), the GF core's registers and spills per instantiation (``nvcc -Xptxas
 -v``; more registers than ``gf_cuda.registers`` allows, or a spill,
@@ -1601,6 +1621,9 @@ def cluster_phase(torch, mods, root: str) -> dict:
     """The server as operators start it (module docstring, phase 6): a
     4-node x 4-drive deployment of `python -m minio_tpu_torch.server`
     processes sharing the card, and a 2-worker pool beside it."""
+    import http.client
+    import re
+
     import numpy as np
 
     from minio_tpu_torch.client import S3Client
@@ -1648,10 +1671,11 @@ def cluster_phase(torch, mods, root: str) -> dict:
         _wait_online([pool, pool], workers)
         step("start_nodes_and_pool_s", t0)
         for n in everyone:
-            lines = [ln for ln in n.tail(200_000).splitlines() if ln.startswith("device: ")]
-            if len(lines) != (2 if n is pool else 1) or any(
-                    not ln.startswith(f"device: {want_dev}") for ln in lines):
-                n.fail(f"serves on {lines}, not on {want_dev}")
+            # the pool's two workers append to one log, and their lines
+            # can interleave ("device: cudadevice: cuda"): count the words
+            devs = re.findall(r"device: (cuda|cpu|host)", n.tail(200_000))
+            if devs != [want_dev] * (2 if n is pool else 1):
+                n.fail(f"serves on {devs}, not on {want_dev}")
             if "bootstrap config check" in n.tail(200_000):
                 n.fail("bootstrap found a configuration difference")
 
@@ -1684,9 +1708,16 @@ def cluster_phase(torch, mods, root: str) -> dict:
         md5 = {k: hashlib.md5(v).hexdigest() for k, v in {**std, **rrs, "late": late}.items()}
         moved = {"put": 0, "get": 0, "bodies_checked": 0}
 
+        def request(cli, node, method, path, **kw):
+            # a connection cut mid-body fails with the serving node's log
+            try:
+                return cli.request(method, path, timeout=600, **kw)
+            except (OSError, http.client.HTTPException) as e:
+                node.fail(f"{method} {path}: {e!r}")
+
         def put(cli, node, key, body, cls="STANDARD"):
-            r = cli.request("PUT", f"/{bucket}/{key}", body=body, unsigned_payload=True,
-                            headers={"x-amz-storage-class": cls}, timeout=600)
+            r = request(cli, node, "PUT", f"/{bucket}/{key}", body=body, unsigned_payload=True,
+                        headers={"x-amz-storage-class": cls})
             if r.status != 200 or r.headers.get("etag", "").strip('"') != hashlib.md5(
                     body).hexdigest():
                 node.fail(f"PUT {key} ({cls}): {r.status} etag {r.headers.get('etag')} "
@@ -1694,7 +1725,7 @@ def cluster_phase(torch, mods, root: str) -> dict:
             moved["put"] += len(body)
 
         def get_check(cli, node, key, want):
-            r = cli.request("GET", f"/{bucket}/{key}", timeout=600)
+            r = request(cli, node, "GET", f"/{bucket}/{key}")
             if r.status != 200 or hashlib.md5(r.body).hexdigest() != want or \
                     r.headers.get("etag", "").strip('"') != want:
                 node.fail(f"GET {key}: {r.status}, md5 or ETag mismatch")
@@ -1734,7 +1765,7 @@ def cluster_phase(torch, mods, root: str) -> dict:
         step("overwrite_race_2x16MiB_s", t0)
         seen = set()
         for i in range(NODES):
-            r = clis[i].request("GET", f"/{bucket}/race", timeout=600)
+            r = request(clis[i], nodes[i], "GET", f"/{bucket}/race")
             if r.status != 200 or r.body not in race:
                 nodes[i].fail(f"race: {r.status}, the body is neither writer's")
             seen.add(r.body)
@@ -1878,6 +1909,523 @@ def cluster_phase(torch, mods, root: str) -> dict:
             n.kill()
 
 
+
+class SFTPError(Exception):
+    """An SFTP request answered with a status other than FX_OK."""
+
+    def __init__(self, code: int, msg: str = ""):
+        super().__init__(f"SFTP status {code}: {msg}")
+        self.code = code
+
+
+class SFTPClient:
+    """A small SFTP v3 client on the client role of the port's SSH
+    transport (``minio_tpu_torch/server/ssh.py``): password or ssh-ed25519
+    publickey auth, one session channel with the sftp subsystem, and reads
+    and writes of ``chunk`` bytes kept ``depth`` requests deep, as common
+    clients pipeline theirs (the gateway answers a channel's requests in
+    order)."""
+
+    def __init__(self, port: int, user: str, password: str = "", key=None,
+                 chunk: int = 32 * 1024, depth: int = 16):
+        import socket
+
+        from minio_tpu_torch.server import sftp, ssh
+
+        self.ssh, self.fx = ssh, sftp
+        self.chunk, self.depth = chunk, depth
+        self.tr = ssh.SSHTransport(socket.create_connection(("127.0.0.1", port), timeout=300),
+                                   "client")
+        try:
+            self.tr.handshake()
+            self._auth(user, password, key)
+            self._open_channel()
+        except BaseException:
+            self.tr.sock.close()
+            raise
+        self.rid, self.buf = 0, b""
+        self._send(bytes([sftp.FXP_INIT]) + ssh.wu32(3))
+        if self._recv()[0] != sftp.FXP_VERSION:
+            raise ssh.SSHError("no FXP_VERSION")
+
+    def _auth(self, user: str, password: str, key) -> None:
+        ssh, tr = self.ssh, self.tr
+        tr.send_packet(bytes([ssh.MSG_SERVICE_REQUEST]) + ssh.wstr("ssh-userauth"))
+        if tr.read_msg()[0] != ssh.MSG_SERVICE_ACCEPT:
+            raise ssh.SSHError("ssh-userauth not accepted")
+        head = bytes([ssh.MSG_USERAUTH_REQUEST]) + ssh.wstr(user) + ssh.wstr("ssh-connection")
+        if key is None:
+            tr.send_packet(head + ssh.wstr("password") + b"\x00" + ssh.wstr(password))
+        else:
+            algo, blob = ssh.HOSTKEY_ALGO, ssh.ed25519_blob(key.public_key())
+            # probe first (RFC 4252 section 7), then sign
+            tr.send_packet(head + ssh.wstr("publickey") + b"\x00" + ssh.wstr(algo)
+                           + ssh.wstr(blob))
+            if tr.read_msg()[0] != ssh.MSG_USERAUTH_PK_OK:
+                raise PermissionError(f"{user}: key not trusted")
+            sig = key.sign(ssh.publickey_auth_blob(tr.session_id, user, algo, blob))
+            tr.send_packet(head + ssh.wstr("publickey") + b"\x01" + ssh.wstr(algo)
+                           + ssh.wstr(blob) + ssh.wstr(ssh.ed25519_sig_blob(sig)))
+        if tr.read_msg()[0] != ssh.MSG_USERAUTH_SUCCESS:
+            raise PermissionError(f"{user}: authentication refused")
+
+    def _open_channel(self) -> None:
+        ssh, tr = self.ssh, self.tr
+        tr.send_packet(bytes([ssh.MSG_CHANNEL_OPEN]) + ssh.wstr("session") + ssh.wu32(0)
+                       + ssh.wu32(1 << 30) + ssh.wu32(32768))
+        t, r = tr.read_msg()
+        if t != ssh.MSG_CHANNEL_OPEN_CONFIRMATION:
+            raise ssh.SSHError(f"channel open refused ({t})")
+        r.u32()
+        self.chan = r.u32()
+        tr.send_packet(bytes([ssh.MSG_CHANNEL_REQUEST]) + ssh.wu32(self.chan)
+                       + ssh.wstr("subsystem") + b"\x01" + ssh.wstr("sftp"))
+        if tr.read_msg()[0] != ssh.MSG_CHANNEL_SUCCESS:
+            raise ssh.SSHError("sftp subsystem refused")
+
+    def _send(self, payload: bytes) -> None:
+        ssh = self.ssh
+        framed = ssh.wu32(len(payload)) + payload
+        self.tr.send_packet(bytes([ssh.MSG_CHANNEL_DATA]) + ssh.wu32(self.chan)
+                            + ssh.wstr(framed))
+
+    def _recv(self) -> tuple:
+        """(type, request id or None, payload) of the next SFTP reply."""
+        ssh = self.ssh
+        while True:
+            if len(self.buf) >= 4:
+                n = int.from_bytes(self.buf[:4], "big")
+                if len(self.buf) >= 4 + n:
+                    pkt, self.buf = self.buf[4:4 + n], self.buf[4 + n:]
+                    if pkt[0] == self.fx.FXP_VERSION:
+                        return pkt[0], None, pkt[1:]
+                    return pkt[0], int.from_bytes(pkt[1:5], "big"), pkt[5:]
+            t, r = self.tr.read_msg()
+            if t == ssh.MSG_CHANNEL_DATA:
+                r.u32()
+                self.buf += r.str_()
+            elif t != ssh.MSG_CHANNEL_WINDOW_ADJUST:
+                raise ssh.SSHError(f"unexpected message {t}")
+
+    def _submit(self, ftype: int, body: bytes) -> int:
+        self.rid += 1
+        self._send(bytes([ftype]) + self.ssh.wu32(self.rid) + body)
+        return self.rid
+
+    def _reply(self, rid: int) -> tuple:
+        t, got, payload = self._recv()
+        if got != rid:
+            raise self.ssh.SSHError(f"reply to request {got}, want {rid}")
+        return t, payload
+
+    def request(self, ftype: int, body: bytes) -> tuple:
+        """One request and its reply: (reply type, payload)."""
+        return self._reply(self._submit(ftype, body))
+
+    @staticmethod
+    def _status(payload: bytes) -> tuple:
+        code, n = int.from_bytes(payload[:4], "big"), int.from_bytes(payload[4:8], "big")
+        return code, payload[8:8 + n].decode()
+
+    def status(self, ftype: int, body: bytes) -> int:
+        """The status code a request is answered with."""
+        t, payload = self.request(ftype, body)
+        if t != self.fx.FXP_STATUS:
+            raise self.ssh.SSHError(f"reply type {t}, want a status")
+        return self._status(payload)[0]
+
+    def _expect(self, t: int, payload: bytes, want: int) -> bytes:
+        if t == self.fx.FXP_STATUS:
+            raise SFTPError(*self._status(payload))
+        if t != want:
+            raise self.ssh.SSHError(f"reply type {t}, want {want}")
+        return payload
+
+    def realpath(self, path: str) -> str:
+        p = self._expect(*self.request(self.fx.FXP_REALPATH, self.ssh.wstr(path)),
+                         self.fx.FXP_NAME)
+        return self.ssh.Reader(p[4:]).str_().decode()
+
+    @staticmethod
+    def _attrs(r) -> tuple:
+        """(size, permissions) of an SFTP v3 attribute block."""
+        flags, size, perms = r.u32(), 0, 0
+        if flags & 0x1:
+            size = r.u64()
+        if flags & 0x2:
+            r.u32(), r.u32()
+        if flags & 0x4:
+            perms = r.u32()
+        if flags & 0x8:
+            r.u32(), r.u32()
+        return size, perms
+
+    def stat(self, path: str) -> tuple:
+        """(size, permissions); SFTPError where the gateway answers a status."""
+        p = self._expect(*self.request(self.fx.FXP_STAT, self.ssh.wstr(path)),
+                         self.fx.FXP_ATTRS)
+        return self._attrs(self.ssh.Reader(p))
+
+    def listdir(self, path: str) -> list:
+        """[(name, size, is a directory)] in the order the gateway lists."""
+        import stat as stat_mod
+
+        fx, wstr = self.fx, self.ssh.wstr
+        h = self.ssh.Reader(self._expect(*self.request(fx.FXP_OPENDIR, wstr(path)),
+                                         fx.FXP_HANDLE)).str_()
+        out = []
+        while True:
+            t, p = self.request(fx.FXP_READDIR, wstr(h))
+            if t == fx.FXP_STATUS and self._status(p)[0] == fx.FX_EOF:
+                break
+            r = self.ssh.Reader(self._expect(t, p, fx.FXP_NAME))
+            for _ in range(r.u32()):
+                name = r.str_().decode()
+                r.str_()  # longname
+                size, perms = self._attrs(r)
+                out.append((name, size, stat_mod.S_ISDIR(perms)))
+        self.status(fx.FXP_CLOSE, wstr(h))
+        return out
+
+    def _open(self, path: str, flags: int) -> bytes:
+        fx, ssh = self.fx, self.ssh
+        p = self._expect(*self.request(fx.FXP_OPEN, ssh.wstr(path) + ssh.wu32(flags)
+                                       + ssh.wu32(0)), fx.FXP_HANDLE)
+        return ssh.Reader(p).str_()
+
+    def _close(self, h: bytes) -> None:
+        code = self.status(self.fx.FXP_CLOSE, self.ssh.wstr(h))
+        if code != self.fx.FX_OK:
+            raise SFTPError(code, "close")
+
+    def put(self, path: str, data: bytes) -> None:
+        """Write ``data`` as the file ``path``, ``depth`` writes in flight;
+        the gateway commits it as one object PUT on close."""
+        fx, ssh = self.fx, self.ssh
+        h = self._open(path, fx.PF_WRITE | fx.PF_CREAT | fx.PF_TRUNC)
+        inflight, off = [], 0
+        while off < len(data) or inflight:
+            while off < len(data) and len(inflight) < self.depth:
+                part = data[off:off + self.chunk]
+                inflight.append(self._submit(fx.FXP_WRITE, ssh.wstr(h) + off.to_bytes(8, "big")
+                                            + ssh.wstr(part)))
+                off += len(part)
+            t, p = self._reply(inflight.pop(0))
+            code = self._status(p)[0] if t == fx.FXP_STATUS else -1
+            if code != fx.FX_OK:
+                raise SFTPError(code, f"write {path}")
+        self._close(h)
+
+    def get(self, path: str) -> bytes:
+        """The file ``path`` read ``chunk`` bytes a request, ``depth``
+        requests in flight, until the gateway answers FX_EOF."""
+        fx, ssh = self.fx, self.ssh
+        h = self._open(path, fx.PF_READ)
+        parts, inflight, off, eof = [], [], 0, False
+        while inflight or not eof:
+            while not eof and len(inflight) < self.depth:
+                inflight.append(self._submit(fx.FXP_READ, ssh.wstr(h) + off.to_bytes(8, "big")
+                                            + ssh.wu32(self.chunk)))
+                off += self.chunk
+            t, p = self._reply(inflight.pop(0))
+            if t == fx.FXP_STATUS and self._status(p)[0] == fx.FX_EOF:
+                eof = True
+                continue
+            data = ssh.Reader(self._expect(t, p, fx.FXP_DATA)).str_()
+            parts.append(data)
+            if len(data) < self.chunk:
+                eof = True
+        self._close(h)
+        return b"".join(parts)
+
+    def close(self) -> None:
+        self.tr.disconnect()
+
+
+# the gateway phase's deployment: MinIO's "File Transfer Protocol
+# (FTP/SFTP)" (`minio server --ftp="address=:8021" --sftp="address=:8022"
+# ...`): one `python -m minio_tpu_torch.server --ftp F --sftp S` process
+# over 16 local drives, STANDARD = EC:8, one ed25519 key in
+# MINIO_SFTP_AUTHORIZED_KEYS, the server's default read cache
+GATEWAY_ENV = {"MINIO_STORAGE_CLASS_STANDARD": "EC:8", "MINIO_TPU_SCAN_INTERVAL": "0"}
+GW_SESSIONS = 4  # concurrent SFTP sessions, and concurrent FTP transfers
+
+
+def gateway_phase(torch, mods, root: str) -> dict:
+    """The alternate frontends (module docstring, phase 7): SFTP through
+    the port's SSH transport and FTP through ``ftplib`` into one server
+    process on the card, a degraded read through each, the console page,
+    the node's launches by shape, and SIGTERM."""
+    import base64
+    import ftplib
+    import http.client
+    import io
+    import stat as stat_mod
+
+    import numpy as np
+    from cryptography.hazmat.primitives.asymmetric import ed25519
+
+    from minio_tpu_torch.client import S3Client
+    from minio_tpu_torch.server import ssh
+    from minio_tpu_torch.server.nodes import free_ports
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+
+    _build = mods["_build"]
+    stale = [s for s in _build.sources() if _build._stale(
+        os.path.join(_build.BUILD, f"lib{os.path.splitext(os.path.basename(s))[0]}.so"), s)]
+    if stale:  # the node would run nvcc
+        fail(f"kernel libraries older than their sources before the node starts: {stale}")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 7)
+    key = ed25519.Ed25519PrivateKey.from_private_bytes(rng.bytes(32))
+    stranger = ed25519.Ed25519PrivateKey.from_private_bytes(rng.bytes(32))
+    keys_file = os.path.join(root, "authorized_keys")
+    with open(keys_file, "w") as fh:
+        fh.write("minioadmin ssh-ed25519 "
+                 + base64.b64encode(ssh.ed25519_blob(key.public_key())).decode() + "\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MINIO_")}
+    env.update({k: v for k, v in os.environ.items()
+                if k in ("MINIO_TPU_TORCH_DEVICE", "MINIO_TPU_BACKEND")})
+    env.update(GATEWAY_ENV, PYTHONPATH=HERE, MINIO_TPU_SANITIZE="0",
+               MINIO_SFTP_AUTHORIZED_KEYS=keys_file)
+    port, fport, sport = free_ports(3)
+    drives = [os.path.join(root, f"d{i}") for i in range(16)]
+    node = _Node("gateway", port, ["--ftp", fport, "--sftp", sport, *drives], env,
+                 os.path.join(root, "gateway.log"))
+    cli = S3Client(f"127.0.0.1:{port}")
+    bucket = "gateway"
+    t: dict = {}
+    moved = {"sftp_put": 0, "sftp_get": 0, "ftp_put": 0, "ftp_get": 0, "s3_get": 0}
+
+    def step(name: str, t0: float) -> None:
+        t[name] = time.perf_counter() - t0
+        print(f"gateway step {name}: {t[name]:.2f} s", flush=True)
+
+    sftp_body = {f"sftp-{i}.bin": rng.bytes(64 * MIB) for i in range(GW_SESSIONS)}
+    ftp_body = {f"ftp-{i}.bin": rng.bytes(64 * MIB) for i in range(GW_SESSIONS)}
+    deg_body = rng.bytes(64 * MIB)
+    md5 = {k: hashlib.md5(v).hexdigest() for k, v in {**sftp_body, **ftp_body}.items()}
+    sessions: list = []
+    try:
+        # 1. the node, and both gateways bound after its bootstrap
+        t0 = time.perf_counter()
+        node.start()
+        _wait_online([node], [cli])
+        want = (f"FTP gateway on port {fport}", f"SFTP gateway on port {sport}")
+        while not all(w in node.tail(200_000) for w in want):
+            if node.proc.poll() is not None or time.perf_counter() - t0 > NODE_START_S:
+                node.fail(f"gateways not started: want {want}")
+            time.sleep(0.25)
+        step("start_node_and_gateways_s", t0)
+        dev = [ln for ln in node.tail(200_000).splitlines() if ln.startswith("device: ")]
+        want_dev = "cuda" if DEV.startswith("cuda") else "cpu"
+        if len(dev) != 1 or not dev[0].startswith(f"device: {want_dev}"):
+            node.fail(f"serves on {dev}, not on {want_dev}")
+
+        # 2. SFTP: password and publickey auth; a wrong password and an
+        # unlisted key are refused
+        t0 = time.perf_counter()
+        for i in range(GW_SESSIONS):
+            c = SFTPClient(sport, "minioadmin", "minioadmin") if i % 2 == 0 else \
+                SFTPClient(sport, "minioadmin", key=key)
+            sessions.append(c)
+            if c.realpath(".") != "/":
+                node.fail("SFTP realpath . is not /")
+        step("sftp_auth_4_sessions_s", t0)
+        for bad in ({"password": "wrong"}, {"key": stranger}):
+            try:
+                SFTPClient(sport, "minioadmin", **bad).close()
+                node.fail(f"SFTP accepted {list(bad)[0]} auth it must refuse")
+            except PermissionError:
+                pass
+        fx = sessions[0].fx
+        if sessions[0].status(fx.FXP_MKDIR, ssh.wstr(f"/{bucket}") + ssh.wu32(0)) != fx.FX_OK \
+                or cli.request("HEAD", f"/{bucket}").status != 200:
+            node.fail("SFTP mkdir of the bucket")
+
+        # 3. 4 concurrent sessions each write one 64 MiB file (K1 encode
+        # on close), read it back through SFTP, then through S3
+        names = list(sftp_body)
+        t0 = time.perf_counter()
+        run_all(lambda i: sessions[i].put(f"/{bucket}/{names[i]}", sftp_body[names[i]]),
+                range(GW_SESSIONS))
+        step("sftp_put_4x64MiB_s", t0)
+        moved["sftp_put"] += sum(map(len, sftp_body.values()))
+
+        def sftp_get(i):
+            got = sessions[i].get(f"/{bucket}/{names[(i + 1) % GW_SESSIONS]}")
+            if got != sftp_body[names[(i + 1) % GW_SESSIONS]]:
+                node.fail(f"SFTP read of {names[(i + 1) % GW_SESSIONS]} differs")
+
+        t0 = time.perf_counter()
+        run_all(sftp_get, range(GW_SESSIONS))
+        step("sftp_get_4x64MiB_s", t0)
+        moved["sftp_get"] += sum(map(len, sftp_body.values()))
+
+        def s3_get(name):
+            r = cli.request("GET", f"/{bucket}/{name}", timeout=600)
+            if r.status != 200 or hashlib.md5(r.body).hexdigest() != md5[name] or \
+                    r.headers.get("etag", "").strip('"') != md5[name]:
+                node.fail(f"S3 GET {name}: {r.status}, md5 or ETag mismatch")
+
+        t0 = time.perf_counter()
+        run_all(s3_get, names)
+        step("s3_get_4x64MiB_s", t0)
+        moved["s3_get"] += sum(map(len, sftp_body.values()))
+        e = XLStorage(drives[0]).read_version(bucket, names[0], "").erasure
+        if (e.algorithm, e.data_blocks, e.parity_blocks) != ("reedsolomon", 8, 8):
+            fail(f"SFTP object layout {e.algorithm} {e.data_blocks}+{e.parity_blocks}")
+
+        # 4. stat, readdir, rename (a server-side copy: K1 encode), remove
+        c = sessions[0]
+        size, perms = c.stat(f"/{bucket}/{names[0]}")
+        if size != 64 * MIB or not stat_mod.S_ISREG(perms) or \
+                not stat_mod.S_ISDIR(c.stat(f"/{bucket}")[1]):
+            node.fail(f"SFTP stat: size {size}, mode {perms:o}")
+        listed = c.listdir(f"/{bucket}")
+        if sorted(listed) != sorted((n, 64 * MIB, False) for n in names):
+            node.fail(f"SFTP readdir: {listed}")
+        t0 = time.perf_counter()
+        code = c.status(fx.FXP_RENAME, ssh.wstr(f"/{bucket}/{names[0]}")
+                        + ssh.wstr(f"/{bucket}/renamed-0.bin"))
+        step("sftp_rename_64MiB_s", t0)
+        if code != fx.FX_OK or cli.request("HEAD", f"/{bucket}/{names[0]}").status != 404:
+            node.fail(f"SFTP rename: status {code}")
+        md5["renamed-0.bin"] = md5[names[0]]
+        s3_get("renamed-0.bin")
+        moved["s3_get"] += 64 * MIB
+        removed = [c.status(fx.FXP_REMOVE, ssh.wstr(f"/{bucket}/renamed-0.bin"))
+                   for _ in range(2)]
+        if removed != [fx.FX_OK, fx.FX_NO_SUCH_FILE]:
+            node.fail(f"SFTP remove, then remove again: {removed}")
+
+        # 5. FTP: 4 concurrent 64 MiB STORs (K1 encode), their RETRs, LIST,
+        # DELE
+        def ftp_login():
+            f = ftplib.FTP()
+            f.connect("127.0.0.1", fport, timeout=600)
+            f.login("minioadmin", "minioadmin")
+            return f
+
+        fnames = list(ftp_body)
+
+        def stor(name):
+            f = ftp_login()
+            try:
+                f.storbinary(f"STOR /{bucket}/{name}", io.BytesIO(ftp_body[name]),
+                             blocksize=1 << 20)
+            finally:
+                f.quit()
+
+        def retr(name, want):
+            buf = io.BytesIO()
+            f = ftp_login()
+            try:
+                f.retrbinary(f"RETR /{bucket}/{name}", buf.write, blocksize=1 << 20)
+            finally:
+                f.quit()
+            if buf.getvalue() != want:
+                node.fail(f"FTP RETR of {name} differs")
+
+        t0 = time.perf_counter()
+        run_all(stor, fnames)
+        step("ftp_stor_4x64MiB_s", t0)
+        moved["ftp_put"] += sum(map(len, ftp_body.values()))
+        t0 = time.perf_counter()
+        run_all(lambda n: retr(n, ftp_body[n]), fnames)
+        step("ftp_retr_4x64MiB_s", t0)
+        moved["ftp_get"] += sum(map(len, ftp_body.values()))
+        f = ftp_login()
+        try:
+            lines: list = []
+            f.retrlines(f"LIST /{bucket}", lines.append)
+            got = sorted((ln.split()[-1], int(ln.split()[4])) for ln in lines)
+            if got != sorted([(n, 64 * MIB) for n in [*names[1:], *fnames]]):
+                node.fail(f"FTP LIST: {got}")
+            if not f.delete(f"/{bucket}/{fnames[0]}").startswith("250") or \
+                    cli.request("HEAD", f"/{bucket}/{fnames[0]}").status != 404:
+                node.fail("FTP DELE")
+        finally:
+            f.quit()
+
+        # 6. a degraded read: an object no read has touched loses its
+        # object directory on the 8 drives that hold its data shards; SFTP
+        # and then FTP RETR read it back (K1 decode)
+        c.put(f"/{bucket}/degraded.bin", deg_body)
+        moved["sftp_put"] += len(deg_body)
+        dist = XLStorage(drives[0]).read_version(bucket, "degraded.bin", "").erasure.distribution
+        for i, d in enumerate(drives):
+            if dist[i] <= 8:
+                shutil.rmtree(os.path.join(d, bucket, "degraded.bin"))
+        decodes = [_node_counts(cli)["launches"]["fused_decode_hash"]]
+        t0 = time.perf_counter()
+        if c.get(f"/{bucket}/degraded.bin") != deg_body:
+            node.fail("the degraded SFTP read differs")
+        step("sftp_degraded_get_64MiB_s", t0)
+        moved["sftp_get"] += len(deg_body)
+        decodes.append(_node_counts(cli)["launches"]["fused_decode_hash"])
+        t0 = time.perf_counter()
+        retr("degraded.bin", deg_body)
+        step("ftp_degraded_retr_64MiB_s", t0)
+        moved["ftp_get"] += len(deg_body)
+        decodes.append(_node_counts(cli)["launches"]["fused_decode_hash"])
+        deg_launches = {"sftp": decodes[1] - decodes[0], "ftp": decodes[2] - decodes[1]}
+        if not deg_launches["sftp"]:
+            node.fail(f"the degraded SFTP read launched no K1 decode: {deg_launches}")
+
+        # 7. the console page, unauthenticated
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            conn.request("GET", "/minio/console/")
+            r = conn.getresponse()
+            page = r.read()
+            hdrs = {k.lower(): v for k, v in r.getheaders()}
+        finally:
+            conn.close()
+        console = {"status": r.status, "bytes": len(page),
+                   **{h: hdrs.get(h) for h in ("content-type", "cache-control",
+                                               "content-security-policy", "x-frame-options")}}
+        if r.status != 200 or not hdrs.get("content-type", "").startswith("text/html") or \
+                hdrs.get("cache-control") != "no-store" or \
+                hdrs.get("content-security-policy") != "default-src 'self' 'unsafe-inline' blob:" \
+                or hdrs.get("x-frame-options") != "DENY" or b"minio_tpu console" not in page:
+            node.fail(f"console: {console}")
+
+        # 8. the node's counts (zero at its start): K1 encode and decode
+        # launched, no fault counter moved; then SIGTERM, exit 0
+        counts = _node_counts(cli)
+        for k in ("fused_encode_hash", "fused_decode_hash"):
+            if not counts["launches"][k]:
+                node.fail(f"the gateways launched no {k}: {counts['launches']}")
+        if any(counts["faults"].values()) or counts["backend_level"] != 2:
+            node.fail(f"a fault counter moved: {counts}")
+        for s in sessions:
+            s.close()
+        sessions.clear()
+        t0 = time.perf_counter()
+        node.proc.send_signal(15)
+        try:
+            code = node.proc.wait(NODE_STOP_S)
+        except subprocess.TimeoutExpired:
+            node.fail(f"did not exit within {NODE_STOP_S} s of SIGTERM")
+        if code != 0:
+            node.fail(f"exited {code} on SIGTERM")
+        step("sigterm_s", t0)
+        t["phase_s"] = time.perf_counter() - t_phase
+        shapes = counts.pop("shapes")
+        return {"launches": {k: int(v) for k, v in counts["launches"].items()},
+                "shapes": shapes, "seconds": t, "bytes": moved, "node": counts,
+                "degraded_k1_decode_launches": deg_launches, "console": console,
+                "exit": code}
+    finally:
+        for s in sessions:
+            try:
+                s.close()
+            except OSError:
+                pass
+        node.kill()
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -1922,14 +2470,15 @@ def main(argv: list[str]) -> int:
     mods = {"_build": _build, "fc": fused_cuda, "bc": bitrot_cuda, "bt": bitrot_torch,
             "rs": rs, "rt": rs_torch, "gf": gf, "hh": highwayhash, "k3": rs_cuda,
             "cauchy": cauchy, "gc": gf_cuda}
-    obj = cph = dur = s3 = clu = None
+    obj = cph = dur = s3 = clu = gw = None
     if "--kernels" in argv:
         # no main path run: the shapes it would give, launches not measured
         shapes = {k: dict.fromkeys(v) for k, v in DEFAULT_SHAPES.items()}
         launches = dict.fromkeys(shapes)
     else:
         phases = []
-        for phase in (object_phase, cauchy_phase, durability_phase, s3_phase, cluster_phase):
+        for phase in (object_phase, cauchy_phase, durability_phase, s3_phase, cluster_phase,
+                      gateway_phase):
             root = tempfile.mkdtemp(prefix="chip_smoke_drives_", dir=HERE)
             try:
                 phases.append(phase(torch, mods, root))
@@ -1937,7 +2486,7 @@ def main(argv: list[str]) -> int:
                 shutil.rmtree(root, ignore_errors=True)
                 for k in ("MINIO_TPU_EC_FAMILY", "MINIO_TPU_DEVICE_HEAL"):
                     os.environ.pop(k, None)
-        obj, cph, dur, s3, clu = phases
+        obj, cph, dur, s3, clu, gw = phases
         # each path's own counts, read just after it ran, summed per kernel
         shapes = {k: {} for k in DEFAULT_SHAPES}
         launches = dict.fromkeys(DEFAULT_SHAPES, 0)
@@ -1993,6 +2542,11 @@ def main(argv: list[str]) -> int:
                                  "restored_files", "speedtest_knee", "exits", "libcuda_mapped")},
             shapes={name: {shape_name(k): n for k, n in per.items()}
                     for name, per in clu["shapes"].items()}, card=card)}))
+        print(json.dumps({"gateway_phase": dict(
+            {k: gw[k] for k in ("seconds", "bytes", "launches", "node",
+                                "degraded_k1_decode_launches", "console", "exit")},
+            shapes={name: {shape_name(k): n for k, n in per.items()}
+                    for name, per in gw["shapes"].items()}, card=card)}))
     print(json.dumps({"kernel_shapes": {k: v["shapes"] for k, v in kres.items()}}))
     # K2's device time per packet round (n/32 rounds a message), and the
     # hash core's instructions per round in the hot loop

@@ -643,10 +643,8 @@ class S3Server(
                 # embedded browser console (reference embeds minio/console,
                 # cmd/common-main.go:46); static page, data calls signed
                 # in-browser
-                try:
-                    from .console import handle_console
-                except ImportError:  # console.py is not in this package yet
-                    return self._err_response(request, s3err.NotImplemented_)
+                from .console import handle_console
+
                 return handle_console(request)
             if key.startswith("health/"):
                 # disk probes may hit remote drives: stay off the event loop
@@ -1115,12 +1113,6 @@ def main(argv: list[str] | None = None) -> None:
         "for the listener and all internode planes when the pair exists",
     )
     args = ap.parse_args(argv)
-    for flag, module in (("ftp", "server/ftp.py"), ("sftp", "server/sftp.py")):
-        if getattr(args, flag):
-            raise SystemExit(
-                f"--{flag}: the {flag.upper()} gateway ({module}) is not in "
-                "minio_tpu_torch yet; start the server without it"
-            )
     host, _, port = args.address.rpartition(":")
     my_port = int(port)
 
@@ -1317,7 +1309,35 @@ def main(argv: list[str] | None = None) -> None:
         # RPC, so the listener must come up FIRST (on_startup blocks it)
         import asyncio
 
-        app["bootstrap"] = asyncio.create_task(bootstrap())
+        async def boot_then_gateways():
+            await bootstrap()
+            # gateway ports don't SO_REUSEPORT: in a pool only worker 0
+            # binds them (a second binder would EADDRINUSE-crash, and
+            # the supervisor's crash budget would take the whole pool
+            # down over a gateway flag)
+            if worker_index > 0 and (args.ftp or args.sftp):
+                print(
+                    f"worker {worker_index}: FTP/SFTP gateways served by "
+                    "worker 0 only", flush=True,
+                )
+                return
+            if args.ftp:
+                from .ftp import FTPGateway
+
+                await FTPGateway(srv).serve(host or "0.0.0.0", args.ftp)
+                print(f"FTP gateway on port {args.ftp}", flush=True)
+            if args.sftp:
+                from .sftp import SFTPGateway, load_authorized_keys
+
+                SFTPGateway(
+                    srv,
+                    authorized_keys=load_authorized_keys(
+                        os.environ.get("MINIO_SFTP_AUTHORIZED_KEYS")
+                    ),
+                ).listen(host or "0.0.0.0", args.sftp)
+                print(f"SFTP gateway on port {args.sftp}", flush=True)
+
+        app["bootstrap"] = asyncio.create_task(boot_then_gateways())
 
     srv.app.on_startup.append(on_start)
     # explicit runner: read_bufsize lifts the front's 64 KiB StreamReader

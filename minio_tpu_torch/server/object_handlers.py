@@ -71,6 +71,23 @@ class ObjectHandlersMixin:
             fam = ""
         return fam if fam in FAMILIES else None
 
+    def put_standard_object(self, bucket, key, data, user_defined=None):
+        """An object PUT from a protocol gateway (FTP, SFTP) at the
+        STANDARD storage class: the parity and family an S3 PUT without
+        an x-amz-storage-class header gets. MinIO's object layer applies
+        the class to every frontend's writes (cmd/erasure-object.go
+        putObject); the JAX package's gateways write at the set's default
+        parity, so MINIO_STORAGE_CLASS_STANDARD=EC:8 on 16 drives gave
+        their objects EC:4."""
+        import types
+
+        standard = types.SimpleNamespace(headers={})
+        return self.store.put_object(
+            bucket, key, data, user_defined,
+            parity=self._parity_for_storage_class(standard),
+            family=self._family_for_storage_class(standard),
+        )
+
     async def _proxy_get_remote(self, request, bucket, key, vid=""):
         """Serve a not-yet-replicated object from a replication target.
 

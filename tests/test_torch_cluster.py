@@ -6,8 +6,8 @@ both nodes, the bootstrap environment check, profile and trace fan-out,
 node-failure tolerance and restart) run against port nodes, then a 4-node
 EC 8+8 cluster loses a node's object directories and the admin heal must
 bring every file back byte for byte. Nodes run on the CPU
-(``MINIO_TPU_TORCH_DEVICE=cpu``, the host plane). ``main()``'s named
-refusals are pinned at the end.
+(``MINIO_TPU_TORCH_DEVICE=cpu``, the host plane). ``main()``'s gateway
+flags and its named refusals are pinned at the end.
 """
 
 from __future__ import annotations
@@ -298,12 +298,69 @@ def test_four_node_ec8_node_loss_heal(cluster4):
     assert clis[3].get_object("heal4", "while-down").body == late
 
 
-# -- main()'s refusals ----------------------------------------------------------
+# -- main()'s gateways and refusals ---------------------------------------------
+
+
+@pytest.mark.parametrize("flags", [["--ftp"], ["--sftp"], ["--ftp", "--sftp"]])
+def test_gateway_flags_start_the_gateways(tmp_path, flags):
+    """``--ftp`` / ``--sftp`` start each gateway after bootstrap, on the
+    port given, each printing it; the SFTP gateway trusts the keys listed in
+    MINIO_SFTP_AUTHORIZED_KEYS. A STOR or an SFTP write reads back."""
+    import base64
+    import ftplib
+    import io
+
+    from cryptography.hazmat.primitives.asymmetric import ed25519
+
+    import chip_smoke
+    from minio_tpu_torch.server import ssh
+    from minio_tpu_torch.server.nodes import free_ports
+
+    port, fport, sport = free_ports(3)
+    gw_ports = {"--ftp": fport, "--sftp": sport}
+    key = ed25519.Ed25519PrivateKey.from_private_bytes(bytes(range(32)))
+    keys = tmp_path / "authorized_keys"
+    keys.write_text("minioadmin ssh-ed25519 "
+                    + base64.b64encode(ssh.ed25519_blob(key.public_key())).decode() + "\n")
+    log = tmp_path / "node.log"
+    argv = [a for f in flags for a in (f, gw_ports[f])]
+    proc = spawn(port, [*argv, *[tmp_path / f"d{i}" for i in range(4)]],
+                 node_env(MINIO_SFTP_AUTHORIZED_KEYS=str(keys)), log)
+    want = [f"{f[2:].upper()} gateway on port {gw_ports[f]}" for f in flags]
+    try:
+        deadline = time.monotonic() + DEADLINE_S
+        lines: list = []
+        while not all(w in lines for w in want):
+            assert proc.poll() is None and time.monotonic() < deadline, tail(log)
+            time.sleep(0.25)
+            lines = tail(log, 200_000).splitlines()
+        assert [ln for ln in lines if "gateway on port" in ln] == want, lines
+        body = bytes(range(256)) * 300
+        if "--sftp" in flags:
+            c = chip_smoke.SFTPClient(sport, "minioadmin", key=key)
+            try:
+                assert c.status(c.fx.FXP_MKDIR, ssh.wstr("/gw-sftp") + ssh.wu32(0)) == 0
+                c.put("/gw-sftp/obj.bin", body)
+                assert c.get("/gw-sftp/obj.bin") == body
+            finally:
+                c.close()
+        if "--ftp" in flags:
+            f = ftplib.FTP()
+            f.connect("127.0.0.1", fport, timeout=30)
+            f.login("minioadmin", "minioadmin")
+            try:
+                f.mkd("/gw-ftp")
+                f.storbinary("STOR /gw-ftp/obj.bin", io.BytesIO(body))
+                buf = io.BytesIO()
+                f.retrbinary("RETR /gw-ftp/obj.bin", buf.write)
+                assert buf.getvalue() == body
+            finally:
+                f.quit()
+    finally:
+        stop_all([proc])
 
 
 @pytest.mark.parametrize("argv,env,needle", [
-    (["--ftp", "2121"], {}, "server/ftp.py"),
-    (["--sftp", "2222"], {}, "server/sftp.py"),
     ([], {"MINIO_TPU_SANITIZE": "1"}, "analysis/sanitizer.py"),
 ])
 def test_unported_options_are_refused_by_name(monkeypatch, tmp_path, argv, env, needle):

@@ -47,9 +47,6 @@ def test_no_forbidden_imports(path):
 # it is reached only off the ported paths (ROADMAP Queue 1 names when each
 # module comes)
 MISSING_OK = {
-    ("server/app.py", "minio_tpu_torch.server.console"):
-        "the embedded console page at /minio/console; a 501 NotImplemented "
-        "S3 error until console.py lands",
     ("server/metrics.py", "minio_tpu_torch.analysis"):
         "the v3 /api/sanitizer group (analysis/sanitizer.py is not ported)",
     ("server/admin.py", "minio_tpu_torch.analysis"):
@@ -120,7 +117,8 @@ def test_import_pulls_in_no_jax():
         "import minio_tpu_torch.cluster.locks, minio_tpu_torch.cluster.bootstrap\n"
         "import minio_tpu_torch.crypto.tlsconf, minio_tpu_torch.diag\n"
         "import minio_tpu_torch.server.admin, minio_tpu_torch.server.profiling\n"
-        "import minio_tpu_torch.server.worker\n"
+        "import minio_tpu_torch.server.worker, minio_tpu_torch.server.ftp\n"
+        "import minio_tpu_torch.server.sftp, minio_tpu_torch.server.console\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
     )
@@ -141,6 +139,7 @@ def test_server_import_pulls_in_no_optional_package():
         "import minio_tpu_torch.server.sts, minio_tpu_torch.iam.oidc\n"
         "import minio_tpu_torch.server.admin, minio_tpu_torch.diag\n"
         "import minio_tpu_torch.cluster.grid, minio_tpu_torch.cluster.storage_rest\n"
+        "import minio_tpu_torch.server.ftp, minio_tpu_torch.server.console\n"
         f"bad = sorted({{m.split('.')[0] for m in sys.modules}} & set({sorted(FORBIDDEN | OPTIONAL)!r}))\n"
         "print(bad)\n"
     )

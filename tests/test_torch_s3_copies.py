@@ -1,4 +1,5 @@
-"""The S3 core's and the cluster plane's modules are copies of the JAX
+"""The S3 core's, the cluster plane's and the alternate frontends' (FTP,
+SFTP over the SSH transport, the console) modules are copies of the JAX
 package's, with their imports pointed at the port: each port module's
 syntax tree equals the reference's, definition by definition, once
 docstrings are dropped and the two rewrites the copies take are applied
@@ -34,7 +35,14 @@ COPIED = [
     "cluster/locks.py", "cluster/bootstrap.py", "crypto/tlsconf.py",
     "diag/__init__.py", "diag/netperf.py", "diag/speedtest.py", "diag/healthinfo.py",
     "server/profiling.py", "server/admin.py", "server/worker.py", "server/__main__.py",
+    "server/ssh.py", "server/sftp.py", "server/ftp.py", "server/console.py",
 ]
+
+GATEWAY_PUT = (
+    "writes at the STANDARD storage class (S3Server.put_standard_object), as "
+    "MinIO's object layer does for every frontend; the reference's gateways "
+    "write at the set's default parity (ROADMAP Queue 3)"
+)
 
 # (module, definition) -> why the port differs there
 DELIBERATE = {
@@ -48,25 +56,36 @@ DELIBERATE = {
     ("batch/jobs.py", "BatchJobPool.start"):
         "imports yaml where a job definition is parsed",
     ("server/app.py", "main"):
-        "refuses by name what it reaches but the port lacks (--ftp, --sftp, "
-        "MINIO_TPU_SANITIZE) instead of starting the gateways and the "
-        "sanitizer, and resolves the node's device before bootstrap (a host "
-        "without a card refuses to start; the pool's supervisor never "
-        "touches the device)",
+        "refuses MINIO_TPU_SANITIZE by name (analysis/sanitizer.py is not "
+        "ported) instead of installing the sanitizer and its loop watchdog, "
+        "and resolves the node's device before bootstrap (a host without a "
+        "card refuses to start; the pool's supervisor never touches the "
+        "device)",
     ("server/app.py", "S3Server._dispatch"):
         "loads a bucket's metadata off the event loop on first use; the "
         "reference reads the store on the loop there, and a cluster whose "
         "nodes all do so at once waits out the grid's timeouts (ROADMAP "
         "Queue 3; tests/test_torch_cluster.py)",
-    ("server/app.py", "S3Server._entry_inner"):
-        "/minio/console answers NotImplemented (501, S3 XML) while the port "
-        "has no console.py",
     ("server/metrics.py", "_g_api_tpu"):
         "adds minio_tpu_kernel_launches_total{kernel=...} and "
         "minio_tpu_kernel_launch_shapes_total{kernel=...,shape=...}: the hand "
         "kernels' launches in all and by shape, which a deployment's nodes "
         "report to prove their traffic ran on the card at shapes the smoke "
         "then holds against the plain versions",
+    ("server/sftp.py", "_SFTPSession._close"):
+        GATEWAY_PUT,
+    ("server/sftp.py", "_SFTPSession._rename"):
+        GATEWAY_PUT,
+    ("server/sftp.py", "_SFTPSession._mkdir"):
+        GATEWAY_PUT,
+    ("server/ftp.py", "FTPGateway._cmd_stor"):
+        GATEWAY_PUT,
+    ("server/ftp.py", "FTPGateway._cmd_mkd"):
+        GATEWAY_PUT,
+    ("server/object_handlers.py", "ObjectHandlersMixin.put_standard_object"):
+        "the one PUT the FTP and SFTP gateways make: an S3 PUT's parity and "
+        "family without an x-amz-storage-class header, MINIO_STORAGE_CLASS_"
+        "STANDARD's (ROADMAP Queue 3)",
     ("server/admin.py", "handle_admin"):
         "sanitizer/status answers a named NotImplemented (501) while the port "
         "has no analysis/sanitizer.py",

@@ -195,9 +195,9 @@ def _cors_and_auth(c):
 
 
 def _console(c):
-    """What the port answers where it has no module yet: an S3 error with
-    an XML body (the JAX server answers this plane). The admin plane is
-    ported; tests/test_torch_admin.py holds it to the reference."""
+    """The console plane. While the port had no console.py it answered an
+    S3 error here; now it serves the page as the JAX server does. The admin
+    plane is held to the reference in tests/test_torch_admin.py."""
     return [c.request("GET", "/minio/console"),
             c.request("HEAD", "/minio/console/index.html")]
 
@@ -216,10 +216,11 @@ def test_port_answers_like_the_reference(servers, name):
 
 
 def test_unported_planes_answer_an_s3_error(servers):
-    for r in _console(_clients(servers)[1]):
-        assert r.status == 501
-        assert r.headers["content-type"] == "application/xml"
-        assert not r.body or b"<Code>NotImplemented</Code>" in r.body
+    ref, port = (_console(c) for c in _clients(servers))
+    for r, p in zip(ref, port):
+        assert p.status == r.status == 200
+        assert p.headers["content-type"] == r.headers["content-type"] == "text/html"
+        assert p.body == r.body
 
 
 @pytest.mark.parametrize("path,series", [
