@@ -98,8 +98,30 @@ Phases (any failure raises and the script exits non-zero):
    the reference's headers. The node's counts (zero at its start, read
    from its scrape just after): K1 encode and decode launched, no fault
    counter moved; SIGTERM, exit 0.
-8. Hold each kernel against its plain PyTorch version on the card, byte
-   for byte, at every shape phases 2-7 launched it at, and a sample
+8. The sanitized node: phase 5's deployment (16 drives, STANDARD = EC:8,
+   REDUCED_REDUNDANCY = EC:8 cauchy, read cache off) as one `python -m
+   minio_tpu_torch.server` process on the card with the project's runtime
+   sanitizer on (MINIO_TPU_SANITIZE=1, stall threshold 0.5 s): the
+   lock-order witness against the port's generated
+   ``minio_tpu_torch/docs/LOCK_ORDER.md``, the access witness on the
+   attributes of its ``CONCURRENCY.md``, the leak witness, the loop-stall
+   watchdog. A signed admin trace stream (``type=sanitizer,s3``) collects
+   the witnesses' records with their stacks. Through the port's
+   ``S3Client``: 4 concurrent 64 MiB STANDARD PUTs (K1 encode) and their
+   GETs, 2 REDUCED_REDUNDANCY PUTs (K3 + K2) and their GETs, a multipart
+   upload of 4 x 16 MiB, a degraded GET after the 8 drives holding one
+   object's data shards lose it (K1 decode); every md5 equal to its ETag.
+   Then the node's scrapes of ``/api/sanitizer`` and ``/api/tpu``, admin
+   ``sanitizer/status`` and ``healthinfo``. It fails unless the
+   sanitizer is on, its static lock ranks equal the generated table's,
+   it witnesses attributes, the leak witness is armed on ObjectHandle,
+   the status agrees with the scrape, no lock-order, access, leak or
+   lease violation was counted, K1 encode and decode, K3 and K2 launched
+   in the node (zero at its start) with no fault counter moved, no loop
+   stall's innermost package frame lies in code the port added (each
+   stall is printed with its frames), and the node exits 0 on SIGTERM.
+9. Hold each kernel against its plain PyTorch version on the card, byte
+   for byte, at every shape phases 2-8 launched it at, and a sample
    against the numpy reference codec; time both with CUDA events (K1's
    plain version gives its outputs for all K1 shapes from one call, its
    time going to a loop over a row's packets whatever the rows, and is
@@ -121,7 +143,7 @@ Phases (any failure raises and the script exits non-zero):
    rows at odd addresses, and aligned rows of the odd rows' whole-packet
    length), whose time per packet round the script compares; K3 at the
    8x24 composite, B=256, on rows at odd addresses (h = 43,691) and on
-   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-7
+   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-8
    are skipped and the main path's shapes are taken from
    ``DEFAULT_SHAPES``.
 
@@ -132,7 +154,10 @@ dispatches, blocks, launches and fault counters, the heal, the speedtest
 rows, exit codes), one ``gateway_phase`` line (per-step seconds, bytes
 by protocol, the node's launches by shape and dispatcher counts, the K1
 decode launches of each degraded read, the console's headers, the exit
-code), K2's device time per packet round, the hash
+code), one ``sanitizer_phase`` line (per-step seconds, phase 5's beside
+them and both as MiB/s, the witness counts, violations, the scrape, the
+loop stalls with their frames, launches by shape), K2's device time per
+packet round, the hash
 core's SASS instructions per round (``cuobjdump``, where the toolkit has
 it), the GF core's registers and spills per instantiation (``nvcc -Xptxas
 -v``; more registers than ``gf_cuda.registers`` allows, or a spill,
@@ -2426,6 +2451,319 @@ def gateway_phase(torch, mods, root: str) -> dict:
         node.kill()
 
 
+# the sanitized node: phase 5's deployment (16 drives, STANDARD = EC:8,
+# REDUCED_REDUNDANCY = EC:8 cauchy, read cache off) as one `python -m
+# minio_tpu_torch.server` process with the project's runtime sanitizer on
+# (MINIO_TPU_SANITIZE, its default 0.5 s stall threshold)
+SANITIZED_ENV = {**S3_ENV, "MINIO_TPU_SANITIZE": "1", "MINIO_TPU_SANITIZE_STALL_S": "0.5"}
+SAN_STD, SAN_RRS = 4, 2
+# violations the phase must not see (a loop stall is counted and printed)
+SAN_VIOLATIONS = ("lock.order", "attr.race", "resource.leak", "pool.lease-violation")
+# the port's own code (not a copy of the JAX package's): a stall whose
+# innermost package frame lies here is a fault of the port
+PORT_ADDED = ("server/web.py", "device.py", "ops/_build.py", "ops/card.py", "_cuda.py",
+              "utils/msgpack_lite.py")
+
+
+class _TraceTap:
+    """A signed `mc admin trace`-style stream of one node's sanitizer
+    records, read on a thread of its own: they carry the stacks that
+    sanitizer/status leaves out. The stream takes S3 records too: a node
+    notices a gone reader only when it next writes to it, and ``close``
+    makes such records so that the stream ends before the node stops
+    (its front gives a request in flight a minute at shutdown)."""
+
+    def __init__(self, cli):
+        import http.client
+        import urllib.parse
+
+        from minio_tpu_torch.server.signature import UNSIGNED_PAYLOAD, sign_request
+
+        self.cli = cli
+        self.records: list = []
+        qs = urllib.parse.urlencode({"type": "sanitizer,s3", "local": "on"})
+        path = f"/minio/admin/v3/trace?{qs}"
+        hdrs = sign_request("GET", f"http://{cli.host}:{cli.port}{path}", {}, UNSIGNED_PAYLOAD,
+                            cli.access_key, cli.secret_key, cli.region)
+        self.conn = http.client.HTTPConnection(cli.host, cli.port, timeout=NODE_START_S)
+        self.conn.request("GET", path, headers=hdrs)
+        resp = self.conn.getresponse()
+        if resp.status != 200:
+            fail(f"admin trace: HTTP {resp.status}")
+        self._thread = threading.Thread(target=self._read, args=(resp,), daemon=True)
+        self._thread.start()
+
+    def _read(self, resp) -> None:
+        try:
+            for line in resp:
+                rec = json.loads(line)
+                if rec.get("type") == "sanitizer":
+                    self.records.append(rec)
+        except Exception:  # noqa: BLE001 — closed under the reader: the stream is over
+            pass
+
+    def close(self, bucket: str) -> None:
+        import socket
+
+        try:
+            self.conn.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self.conn.close()
+        self._thread.join(NODE_STOP_S)
+        deadline = time.monotonic() + NODE_STOP_S
+        while _scrape(self.cli, "/api/trace", local=True)["minio_trace_subscribers"]:
+            if time.monotonic() > deadline:
+                fail(f"the node kept the closed trace stream for {NODE_STOP_S} s")
+            self.cli.request("HEAD", f"/{bucket}")
+            time.sleep(0.1)
+
+
+def _stall_frames(stack: str, n: int = 6) -> list:
+    """The innermost ``n`` frames of a stall's stack, "file:line fn"."""
+    frames = [ln.strip() for ln in stack.splitlines() if ln.strip().startswith('File "')]
+    out = []
+    for fr in frames[-n:]:
+        path, _, rest = fr[len('File "'):].partition('", line ')
+        line, _, fn = rest.partition(", in ")
+        out.append(f"{path.split('minio_tpu_torch/')[-1]}:{line} {fn}")
+    return out
+
+
+def _port_added(frames: list) -> bool:
+    """Whether the innermost frame of the package among ``frames`` lies in
+    code the port added."""
+    pkg = [f for f in frames if not f.startswith("/") and not f.startswith("<")]
+    return bool(pkg) and any(pkg[-1].split(":")[0].endswith(p) for p in PORT_ADDED)
+
+
+def sanitized_phase(torch, mods, root: str) -> dict:
+    """The sanitized node (module docstring, phase 8): phase 5's traffic,
+    cut to 4 STANDARD and 2 REDUCED_REDUNDANCY objects, into a `python -m
+    minio_tpu_torch.server` process with the lock-order, access and leak
+    witnesses and the loop watchdog on, while K1, K2 and K3 run in it."""
+    import re
+
+    import numpy as np
+
+    from minio_tpu_torch.client import S3Client
+    from minio_tpu_torch.server.nodes import free_ports
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+
+    _build = mods["_build"]
+    stale = [s for s in _build.sources() if _build._stale(
+        os.path.join(_build.BUILD, f"lib{os.path.splitext(os.path.basename(s))[0]}.so"), s)]
+    if stale:  # the node would run nvcc
+        fail(f"kernel libraries older than their sources before the node starts: {stale}")
+    with open(os.path.join(HERE, "minio_tpu_torch", "docs", "LOCK_ORDER.md")) as fh:
+        ranks = len(re.findall(r"^\|\s*\d+\s*\|\s*`", fh.read(), re.M))
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 8)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MINIO_")}
+    env.update({k: v for k, v in os.environ.items()
+                if k in ("MINIO_TPU_TORCH_DEVICE", "MINIO_TPU_BACKEND")})
+    env.update(SANITIZED_ENV, PYTHONPATH=HERE)
+    port = free_ports(1)[0]
+    drives = [os.path.join(root, f"d{i}") for i in range(16)]
+    node = _Node("sanitized", port, drives, env, os.path.join(root, "sanitized.log"))
+    cli = S3Client(f"127.0.0.1:{port}")
+    bucket = "sanitized"
+    std = {f"std-{i}": rng.bytes(64 * MIB) for i in range(SAN_STD)}
+    rrs = {f"rrs-{i}": rng.bytes(64 * MIB) for i in range(SAN_RRS)}
+    parts = [rng.bytes(16 * MIB) for _ in range(S3_PARTS)]
+    md5 = {k: hashlib.md5(v).hexdigest() for k, v in {**std, **rrs}.items()}
+    t: dict = {}
+    moved = {"put": 0, "get": 0}
+    tap = None
+
+    def step(name: str, t0: float) -> None:
+        t[name] = time.perf_counter() - t0
+        print(f"sanitized step {name}: {t[name]:.2f} s", flush=True)
+
+    def put(key, body, cls, unsigned):
+        r = cli.request("PUT", f"/{bucket}/{key}", body=body, unsigned_payload=unsigned,
+                        headers={"x-amz-storage-class": cls}, timeout=600)
+        if r.status != 200 or r.headers.get("etag", "").strip('"') != md5[key]:
+            node.fail(f"PUT {key} ({cls}): {r.status} etag {r.headers.get('etag')} != {md5[key]}")
+        moved["put"] += len(body)
+
+    def get_check(key, want_md5, etag=True):
+        r = cli.request("GET", f"/{bucket}/{key}", timeout=600)
+        if r.status != 200 or hashlib.md5(r.body).hexdigest() != want_md5 or (
+                etag and r.headers.get("etag", "").strip('"') != want_md5):
+            node.fail(f"GET {key}: {r.status}, md5 or ETag mismatch")
+        moved["get"] += len(r.body)
+
+    def layout(key):
+        e = XLStorage(drives[0]).read_version(bucket, key, "").erasure
+        return e.algorithm, e.data_blocks, e.parity_blocks, e.distribution
+
+    try:
+        # 1. the node, its witnesses armed at startup
+        t0 = time.perf_counter()
+        node.start()
+        _wait_online([node], [cli])
+        step("start_node_s", t0)
+        tap = _TraceTap(cli)
+        log = node.tail(200_000)
+        dev = [ln for ln in log.splitlines() if ln.startswith("device: ")]
+        if len(dev) != 1 or not dev[0].startswith("device: " + DEV.split(":")[0]):
+            node.fail(f"serves on {dev}, not on {DEV}")
+        armed = {w: re.search(rf"^sanitizer: {w} witness armed on (\d+) ", log, re.M)
+                 for w in ("access", "leak")}
+        if not all(armed.values()):
+            node.fail(f"witnesses not armed at startup: {armed}")
+        armed = {w: int(m.group(1)) for w, m in armed.items()}
+        r = cli.make_bucket(bucket)
+        if r.status != 200:
+            node.fail(f"make_bucket: {r.status} {r.body[:200]!r}")
+
+        # 2. STANDARD (K1 encode): concurrent streamed PUTs, their GETs
+        t0 = time.perf_counter()
+        run_all(lambda k: put(k, std[k], "STANDARD", True), list(std))
+        step(f"put_standard_{SAN_STD}x64MiB_s", t0)
+        t0 = time.perf_counter()
+        run_all(lambda k: get_check(k, md5[k]), list(std))
+        step(f"get_standard_{SAN_STD}x64MiB_s", t0)
+        if layout("std-0")[:3] != ("reedsolomon", 8, 8):
+            node.fail(f"STANDARD object layout {layout('std-0')[:3]}")
+
+        # 3. REDUCED_REDUNDANCY (K3 + K2): concurrent signed PUTs, GETs
+        t0 = time.perf_counter()
+        run_all(lambda k: put(k, rrs[k], "REDUCED_REDUNDANCY", False), list(rrs))
+        step(f"put_rrs_{SAN_RRS}x64MiB_s", t0)
+        t0 = time.perf_counter()
+        run_all(lambda k: get_check(k, md5[k]), list(rrs))
+        step(f"get_rrs_{SAN_RRS}x64MiB_s", t0)
+        if layout("rrs-0")[:3] != ("cauchy", 8, 8):
+            node.fail(f"REDUCED_REDUNDANCY object layout {layout('rrs-0')[:3]}")
+
+        # 4. multipart: 4 parts of 16 MiB uploaded concurrently
+        t0 = time.perf_counter()
+        r = cli.request("POST", f"/{bucket}/mp", query={"uploads": ""})
+        uid = r.body.split(b"<UploadId>")[1].split(b"</UploadId>")[0].decode()
+        etags: list = [None] * S3_PARTS
+
+        def put_part(i):
+            r = cli.request("PUT", f"/{bucket}/mp", body=parts[i], timeout=600,
+                            query={"partNumber": str(i + 1), "uploadId": uid})
+            if r.status != 200:
+                node.fail(f"upload part {i + 1}: {r.status}")
+            etags[i] = r.headers["etag"]
+            moved["put"] += len(parts[i])
+
+        run_all(put_part, range(S3_PARTS))
+        xml = "<CompleteMultipartUpload>" + "".join(
+            f"<Part><PartNumber>{i + 1}</PartNumber><ETag>{e}</ETag></Part>"
+            for i, e in enumerate(etags)) + "</CompleteMultipartUpload>"
+        r = cli.request("POST", f"/{bucket}/mp", query={"uploadId": uid}, body=xml.encode(),
+                        timeout=600)
+        step(f"multipart_{S3_PARTS}x16MiB_s", t0)
+        want = hashlib.md5(b"".join(hashlib.md5(p).digest() for p in parts)).hexdigest()
+        got = next((el.text.strip('"') for el in r.xml().iter() if el.tag.endswith("ETag")),
+                   None) if r.status == 200 else None
+        if got != f"{want}-{S3_PARTS}":
+            node.fail(f"multipart complete: {r.status} ETag {got!r} != {want}-{S3_PARTS}")
+        get_check("mp", hashlib.md5(b"".join(parts)).hexdigest(), etag=False)
+
+        # 5. degraded GET: the 8 drives holding std-2's data shards lose its
+        # object directory (K1 decode)
+        dist = layout("std-2")[3]
+        for i, d in enumerate(drives):
+            if dist[i] <= 8:
+                shutil.rmtree(os.path.join(d, bucket, "std-2"))
+        dec0 = _node_counts(cli)["launches"]["fused_decode_hash"]
+        t0 = time.perf_counter()
+        get_check("std-2", md5["std-2"])
+        step("degraded_get_64MiB_s", t0)
+        counts = _node_counts(cli)  # the node's counts, zero at its start
+        if counts["launches"]["fused_decode_hash"] == dec0:
+            node.fail("the degraded GET launched no K1 decode")
+        for k in KERNELS:
+            if not counts["launches"][k]:
+                node.fail(f"the sanitized node launched no {k}: {counts['launches']}")
+        if any(counts["faults"].values()) or counts["backend_level"] != 2:
+            node.fail(f"a fault counter moved: {counts}")
+
+        # 6. the sanitizer's scrape, status and the healthinfo bundle
+        t0 = time.perf_counter()
+        san = _scrape(cli, "/api/sanitizer", local=True)
+        r = cli.admin("GET", "sanitizer/status")
+        if r.status != 200:
+            node.fail(f"sanitizer/status: HTTP {r.status}")
+        st = json.loads(r.body)
+        r = cli.admin("GET", "healthinfo")
+        if r.status != 200 or json.loads(r.body)["sanitizer"]["enabled"] is not True:
+            node.fail(f"healthinfo: HTTP {r.status}")
+        step("scrape_status_healthinfo_s", t0)
+        scraped = {"enabled": san["minio_sanitizer_enabled"],
+                   "static_lock_ranks": san["minio_sanitizer_static_lock_ranks"],
+                   "witnessed_attributes": san["minio_sanitizer_witnessed_attributes"],
+                   "stall_episodes": san["minio_sanitizer_loop_stall_episodes_total"],
+                   "violations": {k.split('"')[1]: v for k, v in san.items()
+                                  if k.startswith("minio_sanitizer_violations_total{")}}
+        if scraped["enabled"] != 1:
+            node.fail(f"minio_sanitizer_enabled {scraped['enabled']}")
+        if scraped["static_lock_ranks"] != ranks or not ranks:
+            node.fail(f"{scraped['static_lock_ranks']} static lock ranks loaded, "
+                      f"minio_tpu_torch/docs/LOCK_ORDER.md has {ranks}")
+        if scraped["witnessed_attributes"] <= 0:
+            node.fail("no attribute under the access witness")
+        if "minio_tpu_torch.erasure.set.ObjectHandle" not in st["leakClasses"]:
+            node.fail(f"the leak witness is not armed on ObjectHandle: {st['leakClasses']}")
+        agree = {"enabled": (st["enabled"], scraped["enabled"] == 1),
+                 "static_lock_ranks": (st["staticLockRanks"], scraped["static_lock_ranks"]),
+                 "witnessed_attributes": (len(st["witnessedAttrs"]),
+                                          scraped["witnessed_attributes"]),
+                 "violations": (st["violations"], scraped["violations"])}
+        if any(a != b for a, b in agree.values()) or \
+                st["stallEpisodes"] > scraped["stall_episodes"]:
+            node.fail(f"sanitizer/status disagrees with the scrape: {agree}")
+        bad = {k: st["violations"].get(k, 0) for k in SAN_VIOLATIONS}
+        if any(bad.values()):
+            node.fail(f"sanitizer violations: {bad}; recent {st['recent']}")
+
+        # 7. the trace stream closed, SIGTERM, exit 0
+        tap.close(bucket)
+        t0 = time.perf_counter()
+        node.proc.send_signal(15)
+        try:
+            code = node.proc.wait(NODE_STOP_S)
+        except subprocess.TimeoutExpired:
+            node.fail(f"did not exit within {NODE_STOP_S} s of SIGTERM")
+        if code != 0:
+            node.fail(f"exited {code} on SIGTERM")
+        step("sigterm_s", t0)
+        stalls = []
+        for rec in tap.records:
+            if rec.get("name") != "loop.stall":
+                continue
+            frames = _stall_frames(rec.get("stack", ""))
+            stalls.append({"stall_s": rec.get("stall_s"), "frames": frames,
+                           "port_added": _port_added(frames)})
+            print(f"sanitized loop stall {rec.get('stall_s')} s:\n  " + "\n  ".join(frames),
+                  flush=True)
+        ours = [s for s in stalls if s["port_added"]]
+        if ours:
+            node.fail(f"loop stalls in code the port added: {ours}")
+        t["phase_s"] = time.perf_counter() - t_phase
+        shapes = counts.pop("shapes")
+        return {"launches": {k: int(v) for k, v in counts["launches"].items()},
+                "shapes": shapes, "seconds": t, "bytes": moved, "node": counts,
+                "witnesses": {"access_attributes": armed["access"],
+                              "leak_classes": armed["leak"], "leak_class_names": st["leakClasses"],
+                              "static_lock_ranks": st["staticLockRanks"],
+                              "lock_order_md_ranks": ranks},
+                "violations": st["violations"], "scraped": scraped,
+                # episodes before the stream opened (startup) are counted
+                # in stall_episodes, and their stacks not seen
+                "stall_episodes": st["stallEpisodes"], "stalls": stalls, "exit": code}
+    finally:
+        if tap is not None:
+            tap.conn.close()
+        node.kill()
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -2470,7 +2808,7 @@ def main(argv: list[str]) -> int:
     mods = {"_build": _build, "fc": fused_cuda, "bc": bitrot_cuda, "bt": bitrot_torch,
             "rs": rs, "rt": rs_torch, "gf": gf, "hh": highwayhash, "k3": rs_cuda,
             "cauchy": cauchy, "gc": gf_cuda}
-    obj = cph = dur = s3 = clu = gw = None
+    obj = cph = dur = s3 = clu = gw = san = None
     if "--kernels" in argv:
         # no main path run: the shapes it would give, launches not measured
         shapes = {k: dict.fromkeys(v) for k, v in DEFAULT_SHAPES.items()}
@@ -2478,7 +2816,7 @@ def main(argv: list[str]) -> int:
     else:
         phases = []
         for phase in (object_phase, cauchy_phase, durability_phase, s3_phase, cluster_phase,
-                      gateway_phase):
+                      gateway_phase, sanitized_phase):
             root = tempfile.mkdtemp(prefix="chip_smoke_drives_", dir=HERE)
             try:
                 phases.append(phase(torch, mods, root))
@@ -2486,7 +2824,7 @@ def main(argv: list[str]) -> int:
                 shutil.rmtree(root, ignore_errors=True)
                 for k in ("MINIO_TPU_EC_FAMILY", "MINIO_TPU_DEVICE_HEAL"):
                     os.environ.pop(k, None)
-        obj, cph, dur, s3, clu, gw = phases
+        obj, cph, dur, s3, clu, gw, san = phases
         # each path's own counts, read just after it ran, summed per kernel
         shapes = {k: {} for k in DEFAULT_SHAPES}
         launches = dict.fromkeys(DEFAULT_SHAPES, 0)
@@ -2547,6 +2885,24 @@ def main(argv: list[str]) -> int:
                                 "degraded_k1_decode_launches", "console", "exit")},
             shapes={name: {shape_name(k): n for k, n in per.items()}
                     for name, per in gw["shapes"].items()}, card=card)}))
+    if san:
+        # the same steps of phase 5 (in process, no sanitizer) beside the
+        # sanitized node's, as MiB/s: the witnesses' overhead, reported
+        pairs = {"put_standard": (SAN_STD, S3_STD, 64), "get_standard": (SAN_STD, S3_STD, 64),
+                 "put_rrs": (SAN_RRS, S3_RRS, 64), "get_rrs": (SAN_RRS, S3_RRS, 64),
+                 "multipart": (S3_PARTS, S3_PARTS, 16), "degraded_get": (1, 1, 64)}
+        def key(step, n, size):
+            return f"{step}_{size}MiB_s" if n == 1 else f"{step}_{n}x{size}MiB_s"
+
+        mibps = {step: {"phase8": n8 * size / san["seconds"][key(step, n8, size)],
+                        "phase5": n5 * size / s3["seconds"][key(step, n5, size)]}
+                 for step, (n8, n5, size) in pairs.items()}
+        print(json.dumps({"sanitizer_phase": dict(
+            {k: san[k] for k in ("seconds", "bytes", "launches", "node", "witnesses",
+                                 "violations", "scraped", "stall_episodes", "stalls", "exit")},
+            phase5_seconds=s3["seconds"], mib_per_s=mibps,
+            shapes={name: {shape_name(k): n for k, n in per.items()}
+                    for name, per in san["shapes"].items()}, card=card)}))
     print(json.dumps({"kernel_shapes": {k: v["shapes"] for k, v in kres.items()}}))
     # K2's device time per packet round (n/32 rounds a message), and the
     # hash core's instructions per round in the hot loop

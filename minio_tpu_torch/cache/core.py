@@ -894,9 +894,9 @@ def _transformed(fi) -> bool:
         from ..server import transforms
 
         return transforms.is_transformed(fi.metadata)
-    # fail-SAFE default: any failure (import cycle, malformed metadata)
-    # steers OFF the segment fast path onto the full erasure read, which
-    # serves correctly regardless
+    # miniovet: ignore[error-taint] -- fail-SAFE default: any failure
+    # (import cycle, malformed metadata) steers OFF the segment fast
+    # path onto the full erasure read, which serves correctly regardless
     except Exception:  # noqa: BLE001 — can't tell: stay off the fast path
         return True
 

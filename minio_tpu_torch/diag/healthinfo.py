@@ -62,17 +62,7 @@ def non_default_knobs() -> list[dict]:
 
 def build_healthinfo(server) -> dict:
     """The one-document diagnostic bundle."""
-    try:
-        from ..analysis import sanitizer
-    except ImportError:
-        from ..server import s3err
-
-        raise s3err.APIError(
-            "NotImplemented",
-            "healthinfo reads the runtime sanitizer and the knob registry "
-            "(analysis/sanitizer.py, analysis/knobs.py), which minio_tpu_torch "
-            "does not have yet", 501,
-        ) from None
+    from ..analysis import sanitizer
     from ..storage.health import HealthCheckedDisk
     from ..server.admin import server_info_payload, storage_info_payload
     from . import last_results, stats

@@ -241,6 +241,10 @@ class BufferPool:
     def _violation(self, kind: str) -> None:
         with self._lock:
             self.stats["violations"] += 1
+        from ..analysis import sanitizer
+
+        if sanitizer.enabled():
+            sanitizer._report("pool.lease-violation", kind=kind)
 
     def stats_snapshot(self) -> dict:
         with self._lock:

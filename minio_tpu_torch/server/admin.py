@@ -582,14 +582,7 @@ async def handle_admin(server, request: web.Request, access_key: str, subpath: s
         # runtime sanitizer state: lock witness, access witness,
         # stall episodes, violation counters + recent ring (stackless)
         authz("admin:OBDInfo")
-        try:
-            from ..analysis import sanitizer
-        except ImportError:
-            raise s3err.APIError(
-                "NotImplemented",
-                "the runtime sanitizer (analysis/sanitizer.py) is not in "
-                "minio_tpu_torch yet", 501,
-            ) from None
+        from ..analysis import sanitizer
 
         return _json(sanitizer.status())
     if op == "datausageinfo" and m == "GET":

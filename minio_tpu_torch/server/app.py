@@ -1083,13 +1083,12 @@ def make_server(
 def main(argv: list[str] | None = None) -> None:
     import argparse
 
-    # what main() reaches but this package does not have yet is refused
-    # by name, never skipped
-    if os.environ.get("MINIO_TPU_SANITIZE", "0").lower() in ("1", "on", "true", "yes"):
-        raise SystemExit(
-            "MINIO_TPU_SANITIZE: the runtime sanitizer (analysis/sanitizer.py) "
-            "is not in minio_tpu_torch yet; start the server without it"
-        )
+    from ..analysis import sanitizer
+
+    if sanitizer.enabled():
+        # before any object-layer construction so instance locks created
+        # from here on are witnessed against the generated LOCK_ORDER.md
+        sanitizer.install()
 
     from ..cluster.endpoint import parse_endpoints, remote_nodes
     from ..cluster.locks import LocalLocker, LockRESTServer, NamespaceLock, _RemoteLocker
@@ -1339,7 +1338,39 @@ def main(argv: list[str] | None = None) -> None:
 
         app["bootstrap"] = asyncio.create_task(boot_then_gateways())
 
+        if sanitizer.enabled():
+            # stall watchdog on the serving loop: blocking work that the
+            # static blocking-reachable pass could not name shows up as
+            # obs `type=sanitizer` loop.stall records with the stack
+            app["sanitize_watchdog"] = sanitizer.watch_loop(
+                asyncio.get_running_loop()
+            )
+            # access witness: every serving module is imported by now,
+            # so the cross-context attributes CONCURRENCY.md names
+            # (static races pass) get their touch-recording descriptors
+            armed = sanitizer.arm_access_witness()
+            if armed:
+                print(
+                    f"sanitizer: access witness armed on {armed} "
+                    "attributes", flush=True,
+                )
+            # leak witness: resource classes from the static ownership
+            # table (RESOURCES.md) get weakref finalizers — a
+            # handle collected unreleased reports `resource.leak`
+            leak_armed = sanitizer.arm_leak_witness()
+            if leak_armed:
+                print(
+                    f"sanitizer: leak witness armed on {leak_armed} "
+                    "resource classes", flush=True,
+                )
+
+    async def on_stop(app):
+        wd = app.get("sanitize_watchdog")
+        if wd is not None:
+            wd.stop()
+
     srv.app.on_startup.append(on_start)
+    srv.app.on_cleanup.append(on_stop)
     # explicit runner: read_bufsize lifts the front's 64 KiB StreamReader
     # watermark, which otherwise pause/resumes the transport 16x per MiB on
     # large streaming PUTs

@@ -23,6 +23,8 @@ import subprocess
 import sys
 import time
 
+from ..fault.retry import Backoff
+
 # the directory that holds the package: the nodes import it from there
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -81,6 +83,8 @@ def wait_online(clients, procs=(), timeout: float = 90.0) -> None:
     still waited for."""
     deadline = time.monotonic() + timeout
     pending = list(range(len(clients)))
+    # the tree's one sanctioned sleep (fault/retry.py) paces the probes
+    pause = Backoff(base_s=0.25, cap_s=0.25, jitter=0)
     while pending:
         for i, p in enumerate(procs):
             if p.poll() is not None:
@@ -96,7 +100,7 @@ def wait_online(clients, procs=(), timeout: float = 90.0) -> None:
         if pending and time.monotonic() > deadline:
             raise TimeoutError(f"clients {pending} not online after {timeout} s")
         if pending:
-            time.sleep(0.25)
+            pause.sleep()
 
 
 def stop_all(procs, timeout: float = 10.0) -> None:

@@ -4,9 +4,8 @@ cases of ``tests/test_diag.py``. Object, drive and net speedtests with
 per-node rows over real HTTP, chaos localization (a slow drive or slow
 peer visible by name in the matrix), inspect-data bundles, the admin
 profile fan-out, the QoS guard, and the /api/diag and /system/selftest
-metrics groups. healthinfo reads the knob registry and the runtime
-sanitizer of ``analysis/``, which the port does not have yet: its case
-pins the named error the port answers instead.
+metrics groups, and the healthinfo bundle (which reads the port's knob
+registry and runtime sanitizer, ``analysis/``).
 """
 
 from __future__ import annotations
@@ -202,13 +201,35 @@ def test_foreground_gets_served_during_speedtest(pool):
 
 
 def test_healthinfo_is_refused_by_name(pool):
-    """The reference's bundle reads analysis/; the port answers a named
-    NotImplemented until analysis/ is ported, in both formats."""
-    for query in (None, {"format": "zip"}):
-        r = _admin(pool["w0"], "GET", "healthinfo", query=query)
-        assert r.status == 501, r.body
-        assert b"<Code>NotImplemented</Code>" in r.body
-        assert b"analysis/sanitizer.py, analysis/knobs.py" in r.body
+    """Refused by name until analysis/ came; now the reference's case
+    (tests/test_diag.py::test_healthinfo_json_and_zip): the bundle in
+    both formats."""
+    r = _admin(pool["w0"], "GET", "healthinfo")
+    assert r.status == 200, r.body
+    info = json.loads(r.body)
+    for key in ("time", "version", "hardware", "knobsNonDefault",
+                "topology", "storage", "poolFill", "breakers",
+                "sanitizer", "faults", "selftest"):
+        assert key in info, f"healthinfo missing {key!r}"
+    assert info["version"]["minio_tpu"].startswith("minio-tpu/")
+    assert info["hardware"]["workerCount"] == 2
+    assert len(info["breakers"]) == 8, "one breaker row per drive"
+    # earlier tests ran all three speedtests through this process
+    assert set(info["selftest"]["last"]) >= {"object", "drive", "net"}
+    assert info["selftest"]["runs"]
+    # redaction: no credential value may ride the bundle
+    for knob in info["knobsNonDefault"]:
+        if any(mark in knob["name"].upper()
+               for mark in ("PASSWORD", "SECRET", "TOKEN")):
+            assert knob["value"] == "*REDACTED*", knob
+
+    r = _admin(pool["w0"], "GET", "healthinfo", query={"format": "zip"})
+    assert r.status == 200
+    assert r.headers.get("content-type") == "application/zip"
+    with zipfile.ZipFile(io.BytesIO(r.body)) as z:
+        assert z.namelist() == ["healthinfo.json"]
+        inner = json.loads(z.read("healthinfo.json"))
+        assert inner["version"] == info["version"]
 
 
 def test_inspect_data_bundles_xlmeta_with_verdicts(pool):

@@ -45,17 +45,8 @@ def test_no_forbidden_imports(path):
 
 # the port's lazy relative imports of modules it lacks yet, each with why
 # it is reached only off the ported paths (ROADMAP Queue 1 names when each
-# module comes)
-MISSING_OK = {
-    ("server/metrics.py", "minio_tpu_torch.analysis"):
-        "the v3 /api/sanitizer group (analysis/sanitizer.py is not ported)",
-    ("server/admin.py", "minio_tpu_torch.analysis"):
-        "admin sanitizer/status; it answers a named 501 NotImplemented until "
-        "analysis/sanitizer.py lands",
-    ("diag/healthinfo.py", "minio_tpu_torch.analysis"):
-        "the healthinfo bundle (the knob registry and the sanitizer's "
-        "status); admin healthinfo answers a named 501 until analysis/ lands",
-}
+# module comes): none since analysis/ came
+MISSING_OK: dict = {}
 
 
 def _module_exists(parts) -> bool:
@@ -119,6 +110,8 @@ def test_import_pulls_in_no_jax():
         "import minio_tpu_torch.server.admin, minio_tpu_torch.server.profiling\n"
         "import minio_tpu_torch.server.worker, minio_tpu_torch.server.ftp\n"
         "import minio_tpu_torch.server.sftp, minio_tpu_torch.server.console\n"
+        "import minio_tpu_torch.analysis.sanitizer, minio_tpu_torch.analysis.project\n"
+        "import minio_tpu_torch.analysis.knobs, minio_tpu_torch.analysis.__main__\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
     )

@@ -1,6 +1,7 @@
-"""The S3 core's, the cluster plane's and the alternate frontends' (FTP,
-SFTP over the SSH transport, the console) modules are copies of the JAX
-package's, with their imports pointed at the port: each port module's
+"""The S3 core's, the cluster plane's, the alternate frontends' (FTP,
+SFTP over the SSH transport, the console) and ``analysis/``'s (the static
+gate and the runtime sanitizer) modules are copies of the JAX package's,
+with their imports pointed at the port: each port module's
 syntax tree equals the reference's, definition by definition, once
 docstrings are dropped and the two rewrites the copies take are applied
 (``from aiohttp import web`` becomes the port's stdlib front, ``from .
@@ -36,12 +37,25 @@ COPIED = [
     "diag/__init__.py", "diag/netperf.py", "diag/speedtest.py", "diag/healthinfo.py",
     "server/profiling.py", "server/admin.py", "server/worker.py", "server/__main__.py",
     "server/ssh.py", "server/sftp.py", "server/ftp.py", "server/console.py",
-]
+    "erasure/bufpool.py",
+] + [f"analysis/{m}.py" for m in (
+    "__init__", "__main__", "core", "output", "rules_async", "rules_cache", "rules_copy",
+    "rules_errors", "rules_locks", "rules_obs", "rules_retry", "rules_knobs", "rules_native",
+    "rules_tpu", "knobs", "interproc", "project", "rules_races", "rules_resources",
+    "surface", "rules_surface", "sanitizer",
+)]
 
 GATEWAY_PUT = (
     "writes at the STANDARD storage class (S3Server.put_standard_object), as "
     "MinIO's object layer does for every frontend; the reference's gateways "
     "write at the set's default parity (ROADMAP Queue 3)"
+)
+
+NAMES_THE_PORT = (
+    "names the port: its package (minio_tpu_torch), its CLI (python -m "
+    "minio_tpu_torch.analysis) and its generated tables in "
+    "minio_tpu_torch/docs/, which the repository's docs/ (the JAX "
+    "package's) never hold"
 )
 
 # (module, definition) -> why the port differs there
@@ -56,9 +70,7 @@ DELIBERATE = {
     ("batch/jobs.py", "BatchJobPool.start"):
         "imports yaml where a job definition is parsed",
     ("server/app.py", "main"):
-        "refuses MINIO_TPU_SANITIZE by name (analysis/sanitizer.py is not "
-        "ported) instead of installing the sanitizer and its loop watchdog, "
-        "and resolves the node's device before bootstrap (a host without a "
+        "resolves the node's device before bootstrap (a host without a "
         "card refuses to start; the pool's supervisor never touches the "
         "device)",
     ("server/app.py", "S3Server._dispatch"):
@@ -86,17 +98,88 @@ DELIBERATE = {
         "the one PUT the FTP and SFTP gateways make: an S3 PUT's parity and "
         "family without an x-amz-storage-class header, MINIO_STORAGE_CLASS_"
         "STANDARD's (ROADMAP Queue 3)",
-    ("server/admin.py", "handle_admin"):
-        "sanitizer/status answers a named NotImplemented (501) while the port "
-        "has no analysis/sanitizer.py",
-    ("diag/healthinfo.py", "build_healthinfo"):
-        "answers a named NotImplemented (501) while the port has no "
-        "analysis/ (the bundle reads the sanitizer and the knob registry)",
     ("server/profiling.py", "<module>"):
         "the continuous profiler classifies stacks by the port's paths "
         "(minio_tpu_torch/parallel/, ...)",
     ("server/worker.py", "supervise"):
         "re-executes the port's server (python -m minio_tpu_torch.server)",
+    ("analysis/__main__.py", "<module>"):
+        "the --gen-* defaults are the port's tables inside the package "
+        "(minio_tpu_torch/docs/), found from the module's path, not the "
+        "working directory",
+    ("analysis/__main__.py", "_doc"):
+        "the path of one of those tables",
+    ("analysis/__main__.py", "main"):
+        NAMES_THE_PORT,
+    ("analysis/core.py", "_package_relpath"):
+        "relpaths are relative to minio_tpu_torch/",
+    ("analysis/project.py", "extract_summary"):
+        "resolves absolute imports of minio_tpu_torch.* as the package's own",
+    ("analysis/project.py", "default_cache_path"):
+        "the summary cache lives inside the port's package, so it never meets "
+        "the JAX package's cache at the repository root (each would bust the "
+        "other's entries)",
+    ("analysis/rules_tpu.py", "<module>"):
+        "hostsync's hot path is the torch rungs and the kernel wrappers "
+        "(ops/*_torch.py, ops/*_cuda.py); its syncs add .cpu(), .numpy(), "
+        ".tolist(), .synchronize(), torch.cuda.synchronize and to_numpy; its "
+        "boundaries are the port's (the dispatcher's, the fused decode, the "
+        "bytes-in/out boundary and the kernels' host-side tables); gf-dtype "
+        "also checks torch.zeros/empty/full/ones for torch.uint8",
+    ("analysis/rules_tpu.py", "check_hostsync"):
+        "its message says device hot path",
+    ("analysis/rules_tpu.py", "_dtype_of"):
+        "torch takes a dtype by keyword only: positionals are sizes",
+    ("analysis/rules_tpu.py", "check_gf_dtype"):
+        "its message names torch.uint8 for a tensor",
+    ("analysis/rules_native.py", "<module>"):
+        "also scans the CUDA sources (.cu, .cuh) for getenv of a knob",
+    ("analysis/rules_native.py", "scan_native_source"):
+        NAMES_THE_PORT,
+    ("analysis/rules_knobs.py", "check_knobs"):
+        NAMES_THE_PORT,
+    ("analysis/rules_knobs.py", "dead_knob_findings"):
+        NAMES_THE_PORT,
+    ("analysis/knobs.py", "<module>"):
+        "the registry describes the port's knobs: MINIO_TPU_BACKEND defaults "
+        "to torch (the device route) or numpy; MINIO_TPU_TORCH_DEVICE is "
+        "declared; MINIO_TPU_PALLAS goes (no source of the port reads it)",
+    ("analysis/knobs.py", "generate_config_md"):
+        NAMES_THE_PORT,
+    ("analysis/interproc.py", "generate_lock_order_md"):
+        NAMES_THE_PORT,
+    ("analysis/rules_races.py", "generate_concurrency_md"):
+        NAMES_THE_PORT,
+    ("analysis/rules_resources.py", "generate_resources_md"):
+        NAMES_THE_PORT,
+    ("analysis/rules_resources.py", "ResourcesEngine._finding"):
+        NAMES_THE_PORT,
+    ("analysis/rules_surface.py", "generate_surface_md"):
+        NAMES_THE_PORT,
+    ("analysis/sanitizer.py", "<module>"):
+        "captures the raw lock allocators under any other witness's wrapping "
+        "factory (the JAX package's sanitizer may be installed in the same "
+        "process), keeps the factories install() replaces, matches package "
+        "files on the directory and a separator (a sibling minio_tpu_torch_x/ "
+        "is not the package), and its leak table names the port's classes",
+    ("analysis/sanitizer.py", "_raw_factory"):
+        "follows __wrapped__ to the raw allocator",
+    ("analysis/sanitizer.py", "_creation_id"):
+        "a file of the package is one under its directory and a separator",
+    ("analysis/sanitizer.py", "_wrapping_factory"):
+        "a lock created outside the package comes from the factory this one "
+        "replaced, so another sanitizer's witness keeps its own locks",
+    ("analysis/sanitizer.py", "install"):
+        "remembers the factories it replaces",
+    ("analysis/sanitizer.py", "uninstall"):
+        "puts back the factories install() found (never leaves threading "
+        "changed), not the raw allocators",
+    ("analysis/sanitizer.py", "load_static_order"):
+        "reads the port's minio_tpu_torch/docs/LOCK_ORDER.md",
+    ("analysis/sanitizer.py", "load_concurrency_table"):
+        "reads the port's minio_tpu_torch/docs/CONCURRENCY.md",
+    ("analysis/sanitizer.py", "arm_access_witness"):
+        "arms classes of minio_tpu_torch.* modules",
 }
 
 
