@@ -3,7 +3,7 @@
 
 PY ?= python
 
-.PHONY: check check-clean test docs bench-smoke diag-smoke
+.PHONY: check check-clean test docs bench-smoke diag-smoke diag-smoke-torch
 
 # whole-program static analysis (per-file rules + interprocedural
 # passes) with the content-hash incremental cache: warm runs re-parse
@@ -44,3 +44,8 @@ bench-smoke:
 # manifest declares present in the live scrape.
 diag-smoke:
 	MINIO_TPU_BACKEND=numpy $(PY) scripts/diag_smoke.py
+
+# the same against the port (minio_tpu_torch): a 2-worker pool of its
+# server on the card (MINIO_TPU_TORCH_DEVICE=cpu runs it on the CPU rung)
+diag-smoke-torch:
+	$(PY) -m minio_tpu_torch.scripts.diag_smoke

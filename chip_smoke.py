@@ -120,8 +120,27 @@ Phases (any failure raises and the script exits non-zero):
    in the node (zero at its start) with no fault counter moved, no loop
    stall's innermost package frame lies in code the port added (each
    stall is printed with its frames), and the node exits 0 on SIGTERM.
-9. Hold each kernel against its plain PyTorch version on the card, byte
-   for byte, at every shape phases 2-8 launched it at, and a sample
+9. The last modules and the reference's served traffic: the port's graft
+   entry (``minio_tpu_torch/graft_entry.py``), its one-step check (one
+   encode + hash call at EC 4+2 on the card, held against the host codec
+   and HighwayHash: K2 at 12 rows of 1 KiB) and its multi-device dry run
+   on every visible card (``nccl``, one process a rank, EC 8+8, one 1 MiB
+   block a rank, three erasure patterns rebuilt, the block count
+   all-reduced: K2 at 16 rows of 128 KiB a rank, reported by the ranks);
+   the served-traffic cases of ``tests/test_torch_served.py`` at the
+   reference's shapes (``tests/test_tpu_served.py``: the port's S3 server
+   in process over 4 drives at EC 2+2, 32 concurrent 2 MiB PUTs through
+   the fused encode, GETs, degraded GETs through the fused decode, an
+   admin heal with the device heal on, a 2 x 5 MiB multipart upload; the
+   K1 decode matrix at B=16 over 4 geometries and 19 loss patterns, and
+   the dispatcher's padding edges at 15 and 17 blocks); and
+   ``python -m minio_tpu_torch.scripts.diag_smoke`` against a 2-worker
+   pool on the card, which must exit 0. Counts are zeroed just before the
+   one-step check and read after the padding edges, the dry run's ranks'
+   added, and the pool's (its workers' scrapes, which the diag smoke
+   prints by shape before it stops the pool).
+10. Hold each kernel against its plain PyTorch version on the card, byte
+   for byte, at every shape phases 2-9 launched it at, and a sample
    against the numpy reference codec; time both with CUDA events (K1's
    plain version gives its outputs for all K1 shapes from one call, its
    time going to a loop over a row's packets whatever the rows, and is
@@ -143,7 +162,7 @@ Phases (any failure raises and the script exits non-zero):
    rows at odd addresses, and aligned rows of the odd rows' whole-packet
    length), whose time per packet round the script compares; K3 at the
    8x24 composite, B=256, on rows at odd addresses (h = 43,691) and on
-   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-8
+   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-9
    are skipped and the main path's shapes are taken from
    ``DEFAULT_SHAPES``.
 
@@ -156,7 +175,11 @@ by protocol, the node's launches by shape and dispatcher counts, the K1
 decode launches of each degraded read, the console's headers, the exit
 code), one ``sanitizer_phase`` line (per-step seconds, phase 5's beside
 them and both as MiB/s, the witness counts, violations, the scrape, the
-loop stalls with their frames, launches by shape), K2's device time per
+loop stalls with their frames, launches by shape), one ``graft_phase``
+line (per-step seconds, the dry run's backend, world and seconds, its
+ranks' K2 launches, the diag pool's launches by shape, the diag smoke's
+last line, launches by shape), K2's
+device time per
 packet round, the hash
 core's SASS instructions per round (``cuobjdump``, where the toolkit has
 it), the GF core's registers and spills per instantiation (``nvcc -Xptxas
@@ -294,14 +317,16 @@ def max_abs_err(torch, got, want) -> int:
 # (no object phase to read them from): the dispatcher's cap of 4,096
 # shards is 256 blocks at 8+8; degraded GETs decode 8-block windows padded
 # to 16 with all 8 data shards rebuilt from parity; EC 12+4 PUTs hash
-# 64 and 256 blocks of 16 shards of 87,382 bytes; cauchy PUTs apply the
+# 64 and 256 blocks of 16 shards of 87,382 bytes (and the graft entry's
+# dry run one 8+8 block of 16 shards of 128 KiB a rank, its one-step
+# check 2 blocks of 6 shards of 1 KiB); cauchy PUTs apply the
 # [2p, 2d] composite to 256 blocks' a/b halves (K3 keys: B, 2d, 2p, h,
 # sub-chunks) and hash their 2 x 16 sub-chunks per block
 DEFAULT_SHAPES = {
     "fused_encode_hash": [("encode", 256, 8, 8, 131072)],
     "fused_decode_hash": [("decode", 16, 8, 8, 131072, tuple(range(8, 16)), tuple(range(8)))],
     "hh_chain": [(1024, -(-MIB // 12)), (4096, -(-MIB // 12)), (8192, 65536),
-                 (8192, -(-MIB // 12) // 2)],
+                 (8192, -(-MIB // 12) // 2), (16, MIB // 8), (12, 1024)],
     "gf_apply": [(256, 16, 16, 65536, 2), (256, 24, 8, -(-MIB // 12) // 2, 2)],
 }
 # K3's alignment pair: the cauchy 12+4 sub-chunk length (rows at odd
@@ -347,8 +372,9 @@ def k1_case(torch, mods, g, key) -> dict:
 
 def k1_plain(torch, mods, cases) -> list:
     """The plain version's (out, digests) for every case: each one's GF
-    product, then one HighwayHash call over all their shards, whose time
-    goes to its loop over the packets of a row, whatever the rows."""
+    product, then one HighwayHash call per shard length over all the
+    cases' shards of that length, whose time goes to its loop over the
+    packets of a row, whatever the rows."""
     import numpy as np
 
     rt, bt = mods["rt"], mods["bt"]
@@ -358,9 +384,12 @@ def k1_plain(torch, mods, cases) -> list:
         w = torch.from_numpy(rt.gf_matrix_to_bitplanes(m).astype(np.float32)).to(x.device)
         outs.append(rt.gf_apply_bits(w, x, m.shape[0]))
         rows.append(torch.cat([x, outs[-1]], dim=1).reshape(-1, x.shape[2]))
-    if len({r.shape[1] for r in rows}) > 1:
-        fail("k1_plain: the cases differ in shard length")
-    digs = bt.hash256_blocks_plain(torch.cat(rows)).split([len(r) for r in rows])
+    digs: list = [None] * len(cases)
+    for n in sorted({r.shape[1] for r in rows}):
+        idx = [i for i, r in enumerate(rows) if r.shape[1] == n]
+        parts = bt.hash256_blocks_plain(torch.cat([rows[i] for i in idx]))
+        for i, dg in zip(idx, parts.split([len(rows[i]) for i in idx])):
+            digs[i] = dg
     return [(o, dg.reshape(o.shape[0], -1, 32)) for o, dg in zip(outs, digs)]
 
 
@@ -2764,6 +2793,137 @@ def sanitized_phase(torch, mods, root: str) -> dict:
         node.kill()
 
 
+# the graft entry's and scripts' phase: the port's counterparts of the
+# repository's __graft_entry__.py (the one-step check, the multi-device
+# dry run at EC 8+8, one 1 MiB block a rank, on every visible card) and
+# scripts/diag_smoke.py (a 2-worker pool of the server), and the served
+# traffic of tests/test_torch_served.py (the reference's test_tpu_served
+# shapes: 4 drives at EC 2+2, 32 concurrent PUTs of 2 MiB, degraded GETs
+# with one drive's bucket gone, an admin heal with the device heal on, a
+# multipart upload of 2 x 5 MiB; the K1 decode matrix at B=16 and the
+# dispatcher's padding edges)
+DIAG_SMOKE_S = 300
+
+
+def graft_phase(torch, mods, root: str) -> dict:
+    """The last modules on the card (module docstring, phase 9)."""
+    import numpy as np
+
+    import importlib.util
+
+    from minio_tpu_torch import graft_entry
+
+    # by its path: another "tests" package may be importable on the host
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_served", os.path.join(HERE, "tests", "test_torch_served.py"))
+    served = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(served)
+
+    hh, rs = mods["hh"], mods["rs"]
+    t: dict = {}
+    t_phase = time.perf_counter()
+
+    def step(name: str, t0: float) -> None:
+        t[name] = time.perf_counter() - t0
+        print(f"graft step {name}: {t[name]:.2f} s", flush=True)
+
+    _zero_counts(mods)
+    # the one-step check: one call on the card (K2 at 12 rows x 1 KiB)
+    t0 = time.perf_counter()
+    fn, (example,) = graft_entry.entry()
+    parity, digests = fn(example)
+    torch.cuda.synchronize()
+    if parity.device.type != torch.device(DEV).type or tuple(parity.shape) != (2, 2, 1024) \
+            or tuple(digests.shape) != (2, 6, 32):
+        fail(f"graft entry: parity {parity.shape} on {parity.device}, digests {digests.shape}")
+    ref = rs.get_codec(4, 2)
+    for b in range(2):
+        want = ref.split(example[b].tobytes())
+        ref.encode(want)
+        if not (parity[b].cpu().numpy() == want[4:]).all() or not (
+                digests[b].cpu().numpy() == hh.hash256_batch_numpy(want)).all():
+            fail(f"graft entry: block {b} differs from the host codec and HighwayHash")
+    step("entry", t0)
+
+    # the multi-device dry run on every visible card (nccl); its ranks
+    # are processes of their own and report their K2 launches
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(torch.cuda.device_count())
+    if dry["backend"] != "nccl" or dry["world"] != torch.cuda.device_count():
+        fail(f"dry run took {dry['backend']} on {dry['world']} ranks")
+    step("dryrun_multichip", t0)
+
+    # the served traffic on the card, at the reference's shapes
+    saved = {k: os.environ.get(k) for k in served.RIG_ENV}
+    os.environ.update(served.RIG_ENV)
+    rig = None
+    try:
+        t0 = time.perf_counter()
+        rig = served.make_rig(os.path.join(root, "served"))
+        step("served_start", t0)
+        for name, case in (("concurrent_puts", served.concurrent_puts_ride_fused_kernel),
+                           ("gets", served.served_get_roundtrip),
+                           ("degraded_gets", served.degraded_get_rides_decode_kernel),
+                           ("heal", served.heal_rebuilds_on_device),
+                           ("multipart", served.multipart_served_on_device)):
+            t0 = time.perf_counter()
+            case(rig)
+            step(name, t0)
+    finally:
+        if rig is not None:
+            served.stop_rig(rig)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    t0 = time.perf_counter()
+    for d, p, losses in served.DECODE_MATRIX:
+        served.decode_failure_pattern_matrix(d, p, losses, DEV)
+    step("decode_matrix", t0)
+    t0 = time.perf_counter()
+    for k in served.PADDING_EDGES:
+        served.batch_padding_edges(k, DEV)
+    step("padding_edges", t0)
+    launches, shapes = _counts(mods)
+    for key, n in dry["launches"].items():
+        shapes["hh_chain"][key] = shapes["hh_chain"].get(key, 0) + n
+        launches["hh_chain"] += n
+    for key in ((12, 1024), (16, MIB // 8)):  # the one-step check's, the dry run's
+        if key not in shapes["hh_chain"]:
+            fail(f"phase 9 launched no K2 at {key}: {shapes['hh_chain']}")
+    for name in ("fused_encode_hash", "fused_decode_hash"):
+        if not launches[name]:
+            fail(f"phase 9 launched no {name}")
+
+    # the diag plane's smoke against a 2-worker pool on the card
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k not in ("MINIO_TPU_TORCH_DEVICE",
+                                                             "MINIO_TPU_BACKEND")}
+    env["TMPDIR"] = root
+    proc = subprocess.run([sys.executable, "-m", "minio_tpu_torch.scripts.diag_smoke"],
+                          cwd=HERE, env=env, capture_output=True, text=True, timeout=DIAG_SMOKE_S)
+    print(proc.stdout.rstrip(), flush=True)
+    if proc.returncode != 0:
+        fail(f"diag_smoke exited {proc.returncode}: {proc.stderr[-3000:]}")
+    step("diag_smoke", t0)
+    # the pool's launches, by shape, join the shapes the kernel phase holds
+    tag = "diag-smoke: launch shapes "
+    pool = _launch_shapes(json.loads(next(
+        ln for ln in proc.stdout.splitlines() if ln.startswith(tag))[len(tag):]))
+    for name, per in pool.items():
+        for key, n in per.items():
+            shapes[name][key] = shapes[name].get(key, 0) + n
+            launches[name] += n
+    t["phase_s"] = time.perf_counter() - t_phase
+    return {"launches": launches, "shapes": shapes, "seconds": t,
+            "dryrun": {k: dry[k] for k in ("backend", "world", "seconds")},
+            "dryrun_launches": {shape_name(k): n for k, n in dry["launches"].items()},
+            "diag_pool_launches": {name: {shape_name(k): n for k, n in per.items()}
+                                   for name, per in pool.items()},
+            "diag_smoke": proc.stdout.strip().splitlines()[-1]}
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -2808,7 +2968,7 @@ def main(argv: list[str]) -> int:
     mods = {"_build": _build, "fc": fused_cuda, "bc": bitrot_cuda, "bt": bitrot_torch,
             "rs": rs, "rt": rs_torch, "gf": gf, "hh": highwayhash, "k3": rs_cuda,
             "cauchy": cauchy, "gc": gf_cuda}
-    obj = cph = dur = s3 = clu = gw = san = None
+    obj = cph = dur = s3 = clu = gw = san = gr = None
     if "--kernels" in argv:
         # no main path run: the shapes it would give, launches not measured
         shapes = {k: dict.fromkeys(v) for k, v in DEFAULT_SHAPES.items()}
@@ -2816,7 +2976,7 @@ def main(argv: list[str]) -> int:
     else:
         phases = []
         for phase in (object_phase, cauchy_phase, durability_phase, s3_phase, cluster_phase,
-                      gateway_phase, sanitized_phase):
+                      gateway_phase, sanitized_phase, graft_phase):
             root = tempfile.mkdtemp(prefix="chip_smoke_drives_", dir=HERE)
             try:
                 phases.append(phase(torch, mods, root))
@@ -2824,7 +2984,7 @@ def main(argv: list[str]) -> int:
                 shutil.rmtree(root, ignore_errors=True)
                 for k in ("MINIO_TPU_EC_FAMILY", "MINIO_TPU_DEVICE_HEAL"):
                     os.environ.pop(k, None)
-        obj, cph, dur, s3, clu, gw, san = phases
+        obj, cph, dur, s3, clu, gw, san, gr = phases
         # each path's own counts, read just after it ran, summed per kernel
         shapes = {k: {} for k in DEFAULT_SHAPES}
         launches = dict.fromkeys(DEFAULT_SHAPES, 0)
@@ -2903,6 +3063,11 @@ def main(argv: list[str]) -> int:
             phase5_seconds=s3["seconds"], mib_per_s=mibps,
             shapes={name: {shape_name(k): n for k, n in per.items()}
                     for name, per in san["shapes"].items()}, card=card)}))
+    if gr:
+        print(json.dumps({"graft_phase": dict(
+            {k: gr[k] for k in ("seconds", "launches", "dryrun", "dryrun_launches", "diag_smoke")},
+            shapes={name: {shape_name(k): n for k, n in per.items()}
+                    for name, per in gr["shapes"].items()}, card=card)}))
     print(json.dumps({"kernel_shapes": {k: v["shapes"] for k, v in kres.items()}}))
     # K2's device time per packet round (n/32 rounds a message), and the
     # hash core's instructions per round in the hot loop

@@ -108,7 +108,9 @@ class LocalLocker:
                 del e["readers"][uid]
             else:
                 e["readers"][uid] = (c - 1, exp)
-            if not e["readers"] and not e["writer"]:
+            # the entry outlives its last reader while a writer waits: its
+            # marker must keep the next reader out until the writer's poll
+            if not e["readers"] and not e["writer"] and e["wwait"] <= time.monotonic():
                 del self._locks[resource]
             return True
 

@@ -43,6 +43,13 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+def test_the_entry_points_are_checked():
+    # the graft entry and scripts/ stand alone like every other module
+    rel = {os.path.relpath(p, ROOT) for p in _files()}
+    assert {"minio_tpu_torch/graft_entry.py", "minio_tpu_torch/scripts/diag_smoke.py",
+            "minio_tpu_torch/scripts/gen_reference_surface.py"} <= rel
+
+
 # the port's lazy relative imports of modules it lacks yet, each with why
 # it is reached only off the ported paths (ROADMAP Queue 1 names when each
 # module comes): none since analysis/ came
@@ -112,6 +119,8 @@ def test_import_pulls_in_no_jax():
         "import minio_tpu_torch.server.sftp, minio_tpu_torch.server.console\n"
         "import minio_tpu_torch.analysis.sanitizer, minio_tpu_torch.analysis.project\n"
         "import minio_tpu_torch.analysis.knobs, minio_tpu_torch.analysis.__main__\n"
+        "import minio_tpu_torch.graft_entry, minio_tpu_torch.scripts.diag_smoke\n"
+        "import minio_tpu_torch.scripts.gen_reference_surface\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
     )

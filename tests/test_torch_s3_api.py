@@ -17,6 +17,7 @@ import os
 import pytest
 
 import tests.test_s3_api as ref_cases
+from tests.test_torch_suites import PortServerThread  # noqa: F401 — shared by the other files
 
 PORT_ENV = {
     "MINIO_TPU_BACKEND": "torch",
@@ -25,23 +26,6 @@ PORT_ENV = {
     "MINIO_TPU_SCAN_INTERVAL": "0",
     "MINIO_COMPRESSION_ENABLE": "off",
 }
-
-
-class PortServerThread:
-    """The port's server on its own loop thread (``web.serve_in_thread``),
-    started the way the reference's ``tests/test_s3_api.ServerThread``
-    starts the JAX one."""
-
-    def __init__(self, drives, srv=None):
-        from minio_tpu_torch.server import web
-        from minio_tpu_torch.server.app import make_server
-
-        self.srv = srv if srv is not None else make_server(drives)
-        self.port, self._stop = web.serve_in_thread(self.srv.app)
-
-    def stop(self):
-        self.srv.close()
-        self._stop()
 
 
 @pytest.fixture(scope="module")

@@ -69,6 +69,11 @@ DELIBERATE = {
         "no module-top `import yaml`: yaml is needed only to submit a job",
     ("batch/jobs.py", "BatchJobPool.start"):
         "imports yaml where a job definition is parsed",
+    ("cluster/locks.py", "LocalLocker.runlock"):
+        "keeps a resource's entry while a writer's waiting marker is live; the "
+        "reference drops it with the last reader, and a stream of readers "
+        "then starves a heal of its write lock (ROADMAP Queue 3; "
+        "tests/test_torch_locks.py)",
     ("server/app.py", "main"):
         "resolves the node's device before bootstrap (a host without a "
         "card refuses to start; the pool's supervisor never touches the "
