@@ -139,8 +139,26 @@ Phases (any failure raises and the script exits non-zero):
    one-step check and read after the padding edges, the dry run's ranks'
    added, and the pool's (its workers' scrapes, which the diag smoke
    prints by shape before it stops the pool).
-10. Hold each kernel against its plain PyTorch version on the card, byte
-   for byte, at every shape phases 2-9 launched it at, and a sample
+10. The reference's data-path suites on the card: the cases of the JAX
+   package's own suites whose work reaches the kernels, run as the
+   reference wrote them through ``tests/test_torch_suites.py`` (its
+   imports pointed at the port, its fixtures applied by pytest, the
+   repository's ``tests/conftest.py`` left out: it imports the JAX
+   package) on the card's route, ``MINIO_TPU_BACKEND=torch`` on
+   ``cuda``: the batching core (``test_dispatcher``, both cases: 8
+   concurrent submissions must share dispatches, ``blocks >= 17``,
+   ``max_batch >= 4``), the dispatcher's QoS lanes (``test_qos``'s 5
+   dispatch cases), the second code family's cases whose objects carry
+   full 1 MiB stripe blocks (``test_cauchy``), its encode identity held
+   against K3 itself and its family obs record (which sets the numpy
+   backend itself), and the segment cache's (``test_cache_segments``,
+   the coherence case under 4 readers first). Each case's seconds and
+   its launches by kernel and shape are printed; counts are zeroed just
+   before the first case and read after the last. K1 encode, K3 and K2
+   must have launched, no dispatcher the cases reached may have moved a
+   fault counter, and no ``minio_tpu`` module may be imported at the end.
+11. Hold each kernel against its plain PyTorch version on the card, byte
+   for byte, at every shape phases 2-10 launched it at, and a sample
    against the numpy reference codec; time both with CUDA events (K1's
    plain version gives its outputs for all K1 shapes from one call, its
    time going to a loop over a row's packets whatever the rows, and is
@@ -162,7 +180,7 @@ Phases (any failure raises and the script exits non-zero):
    rows at odd addresses, and aligned rows of the odd rows' whole-packet
    length), whose time per packet round the script compares; K3 at the
    8x24 composite, B=256, on rows at odd addresses (h = 43,691) and on
-   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-9
+   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-10
    are skipped and the main path's shapes are taken from
    ``DEFAULT_SHAPES``.
 
@@ -178,7 +196,8 @@ them and both as MiB/s, the witness counts, violations, the scrape, the
 loop stalls with their frames, launches by shape), one ``graft_phase``
 line (per-step seconds, the dry run's backend, world and seconds, its
 ranks' K2 launches, the diag pool's launches by shape, the diag smoke's
-last line, launches by shape), K2's
+last line, launches by shape), one ``suite_phase`` line (each case's
+seconds and launches by shape, the dispatchers' counters), K2's
 device time per
 packet round, the hash
 core's SASS instructions per round (``cuobjdump``, where the toolkit has
@@ -484,8 +503,10 @@ def check_k2_offsets(torch, mods, g, n: int, rows: int = 4) -> dict:
 
 
 def check_k3(torch, mods, g, key, timed: bool) -> dict:
-    """K3 at one main-path shape (B, 2d, 2p, h, 2): the cauchy composite
-    applied in place to [B, d, 2h] data, kernel vs its plain version on
+    """K3 at one main-path shape (B, 2d, 2p, h, sub): the cauchy composite
+    applied to [B, d, 2h] data, in place on the sub-chunks (sub = 2, the
+    codec's ``encode_blocks``) or to the explicit [B, 2d, h] a/b rows
+    (sub = 1, ``cauchy.encode_kernel``), kernel vs its plain version on
     the same inputs, byte for byte, a sample against the numpy cauchy
     codec, and (if timed) CUDA-event times of both and of the library
     product (``rs_torch.gf_apply_bits`` on the explicit composite)."""
@@ -493,17 +514,21 @@ def check_k3(torch, mods, g, key, timed: bool) -> dict:
 
     k3, ca, rt = mods["k3"], mods["cauchy"], mods["rt"]
     b, kc, r, h, sub = key
-    if sub != 2 or kc % 2 or r % 2:
+    if sub not in (1, 2) or kc % 2 or r % 2:
         fail(f"K3 main-path shape {key} is not a cauchy composite")
     d, p = kc // 2, r // 2
     dev = torch.device(DEV)
     w = ca.get_torch_codec(d, p, DEV).w_composite
     x = torch.randint(0, 256, (b, d, 2 * h), dtype=torch.uint8, device=dev, generator=g)
-    run = lambda: k3.gf_apply_cuda(w, x, p, sub=2)  # noqa: E731
-    plain = lambda: k3.gf_apply_plain(w, x, p, sub=2)  # noqa: E731
+    u = x.reshape(b, d, 2, h).transpose(1, 2).reshape(b, kc, h).contiguous()
+    inp, rows = (x, p) if sub == 2 else (u, r)
+    run = lambda: k3.gf_apply_cuda(w, inp, rows, sub=sub)  # noqa: E731
+    plain = lambda: k3.gf_apply_plain(w, inp, rows, sub=sub)  # noqa: E731
     out = run()
     torch.cuda.synchronize()
     err = max_abs_err(torch, out, plain())
+    if sub == 1:  # the a/b parity rows back in the shards' layout
+        out = out.reshape(b, 2, p, h).transpose(1, 2).reshape(b, p, 2 * h)
     ref = ca.get_codec(d, p)
     for bi in (0, b - 1):
         full = np.zeros((d + p, 2 * h), dtype=np.uint8)
@@ -513,7 +538,6 @@ def check_k3(torch, mods, g, key, timed: bool) -> dict:
     res = {"max_abs_err": err}
     if timed:
         bms, by = bound(b * kc * h, b * r * h, b * r * kc * h)
-        u = x.reshape(b, d, 2, h).transpose(1, 2).reshape(b, kc, h).contiguous()
         wf = torch.from_numpy(w.astype(np.float32)).to(dev)
         res.update(ms=cuda_ms(torch, run, inner=5), plain_ms=cuda_ms(torch, plain, reps=5),
                    bound_ms=bms, bound_by=by,
@@ -2924,6 +2948,142 @@ def graft_phase(torch, mods, root: str) -> dict:
             "diag_smoke": proc.stdout.strip().splitlines()[-1]}
 
 
+# the reference's data-path suites on the card (module docstring, phase
+# 10): the cases whose work reaches the kernels, in the order they run.
+# Objects under one 1 MiB stripe block are coded on the host, so the cases
+# were chosen by their launches on the card, not by their names (each
+# segment-cache case here PUTs 2-4 MiB at EC 2+2: K1 at n = 524,288; the
+# QoS lanes' 256-byte shards go to the bit-plane product and K2)
+SUITE_CASES = (
+    "test_torch_cache_segments.py::test_concurrent_overwrites_and_heals_never_serve_stale",
+    "test_torch_cache_segments.py::test_two_touch_admission_then_fill_then_hit",
+    "test_torch_cache_segments.py::test_partial_and_cross_segment_ranges_byte_identical",
+    "test_torch_cache_segments.py::test_suffix_and_open_ended_hints_resolve",
+    "test_torch_cache_segments.py::test_read_outside_hinted_range_falls_back",
+    "test_torch_cache_segments.py::test_disabled_segments_knob_bypasses",
+    "test_torch_cache_segments.py::test_overwrite_invalidates_segments_and_serves_new_bytes",
+    "test_torch_cache_segments.py::test_delete_invalidates_segments",
+    "test_torch_cache_segments.py::test_epoch_bump_revalidates_before_serving",
+    "test_torch_cache_segments.py::test_demote_promote_roundtrip",
+    "test_torch_cache_segments.py::test_disk_tier_disabled_evicts_instead",
+    "test_torch_cache_segments.py::test_disk_read_error_falls_back_and_quarantines",
+    "test_torch_cache_segments.py::test_disk_torn_write_detected_zero_wrong_bytes",
+    "test_torch_dispatcher.py",
+    "test_torch_qos.py::test_dispatch_priority_foreground_never_behind_background",
+    "test_torch_qos.py::test_dispatch_background_rides_leftover_capacity",
+    "test_torch_qos.py::test_dispatch_lone_foreground_skips_window_despite_bg_backlog",
+    "test_torch_qos.py::test_dispatch_background_starvation_protection",
+    "test_torch_qos.py::test_dispatch_priority_results_byte_identical",
+    "test_torch_cauchy_suite.py::test_cauchy_encode_identity_numpy_xla_pallas",
+    "test_torch_cauchy_suite.py::test_mixed_families_one_set_and_default_flip",
+    "test_torch_cauchy_suite.py::test_heal_partial_repair_ingress",
+    "test_torch_cauchy_suite.py::test_degraded_ranged_get_partial_reads",
+    "test_torch_cauchy_suite.py::test_streaming_put_cauchy_roundtrip",
+    "test_torch_cauchy_suite.py::test_multipart_family_pins_at_initiation",
+    "test_torch_cauchy_suite.py::test_multipart_legacy_upload_defaults_to_rs",
+    # sets the numpy backend itself: run on the card, its launches not counted on
+    "test_torch_cauchy_suite.py::test_obs_records_carry_family",
+)
+# the card's route for the suites (tests/test_torch_suites.RUNG)
+CARD_RUNG = {"MINIO_TPU_BACKEND": "torch", "MINIO_TPU_TORCH_DEVICE": "cuda"}
+# a dispatcher counter that moves only when the device route failed
+SUITE_FAULTS = ("fused_failures", "device_faults", "demotions")
+
+
+def suite_phase(torch, mods, root: str) -> dict:
+    """The reference's data-path suites on the card (module docstring,
+    phase 10)."""
+    import types
+
+    import pytest
+
+    from minio_tpu_torch.parallel import dispatcher
+
+    env = dict(os.environ)
+    # the repository's tests, whatever other "tests" package the host has
+    prev_tests = sys.modules.get("tests")
+    pkg = types.ModuleType("tests")
+    pkg.__path__ = [os.path.join(HERE, "tests")]
+    sys.modules["tests"] = pkg
+    # every dispatcher the cases reach: the registry's and those they build
+    reached = {id(d): (d, d.stats_snapshot()) for d in dispatcher._dispatchers.values()}
+    init = dispatcher.DeviceDispatcher.__init__
+
+    def watched(self, *a, **kw):
+        init(self, *a, **kw)
+        reached[id(self)] = (self, self.stats_snapshot())
+
+    cases: list = []
+    failed: list = []
+
+    class CaseClock:
+        @pytest.hookimpl(hookwrapper=True)
+        def pytest_runtest_protocol(self, item, nextitem):
+            l0, s0 = _counts(mods)
+            t0 = time.perf_counter()
+            yield
+            seconds = time.perf_counter() - t0
+            l1, s1 = _counts(mods)
+            shapes = {name: {shape_name(k): n - s0[name].get(k, 0) for k, n in per.items()
+                             if n != s0[name].get(k, 0)} for name, per in s1.items()}
+            case = {"case": item.nodeid, "seconds": seconds,
+                    "launches": {k: l1[k] - l0[k] for k in l1},
+                    "shapes": {k: v for k, v in shapes.items() if v}}
+            cases.append(case)
+            print(f"suite case {item.nodeid}: {seconds:.2f} s launches "
+                  f"{json.dumps(case['shapes'])}", flush=True)
+
+        def pytest_runtest_logreport(self, report):
+            if report.failed:
+                failed.append(f"{report.nodeid} ({report.when})")
+
+    t_phase = time.perf_counter()
+    dispatcher.DeviceDispatcher.__init__ = watched
+    try:
+        from tests import test_torch_suites
+
+        test_torch_suites.RUNG = dict(CARD_RUNG)
+        _zero_counts(mods)
+        rc = pytest.main(
+            ["-q", "-p", "no:cacheprovider", "-p", "no:randomly", "--noconftest",
+             "--rootdir", HERE, "--basetemp", os.path.join(root, "pytest"),
+             "-W", "ignore::pytest.PytestUnknownMarkWarning"]
+            + [os.path.join(HERE, "tests", c) for c in SUITE_CASES],
+            plugins=[CaseClock()])
+        launches, shapes = _counts(mods)  # counts read just after
+    finally:
+        dispatcher.DeviceDispatcher.__init__ = init
+        os.environ.clear()
+        os.environ.update(env)
+        if prev_tests is None:
+            sys.modules.pop("tests", None)
+        else:
+            sys.modules["tests"] = prev_tests
+    seconds = time.perf_counter() - t_phase
+    if rc != 0 or failed or len(cases) < len(SUITE_CASES):
+        fail(f"the suite phase: pytest exit {rc}, failed {failed}, {len(cases)} cases ran")
+    for name in ("fused_encode_hash", "gf_apply", "hh_chain"):
+        if not launches[name]:
+            fail(f"the suite phase launched no {name}: {launches}")
+    stats = {}
+    for d, s0 in reached.values():
+        s1 = d.stats_snapshot()
+        key = f"{d.codec.data_shards}+{d.codec.parity_shards} n={d.n}"
+        for f in SUITE_FAULTS:
+            if s1[f] != s0[f]:
+                fail(f"dispatcher {key}: {f} moved in the suite phase")
+        moved = {f: s1[f] - s0[f] for f in ("dispatches", "blocks", "fused", "numpy_blocks",
+                                             "pad_blocks")}
+        moved["max_batch"] = s1["max_batch"]  # over the dispatcher's life
+        if moved["dispatches"]:
+            stats.setdefault(key, []).append(moved)
+    jax_mods = sorted(m for m in sys.modules if m == "minio_tpu" or m.startswith("minio_tpu."))
+    if jax_mods:
+        fail(f"the suite phase imported the JAX package: {jax_mods[:8]}")
+    return {"launches": launches, "shapes": shapes, "seconds": {"phase_s": seconds},
+            "cases": cases, "stats": stats}
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -2968,7 +3128,7 @@ def main(argv: list[str]) -> int:
     mods = {"_build": _build, "fc": fused_cuda, "bc": bitrot_cuda, "bt": bitrot_torch,
             "rs": rs, "rt": rs_torch, "gf": gf, "hh": highwayhash, "k3": rs_cuda,
             "cauchy": cauchy, "gc": gf_cuda}
-    obj = cph = dur = s3 = clu = gw = san = gr = None
+    obj = cph = dur = s3 = clu = gw = san = gr = su = None
     if "--kernels" in argv:
         # no main path run: the shapes it would give, launches not measured
         shapes = {k: dict.fromkeys(v) for k, v in DEFAULT_SHAPES.items()}
@@ -2976,7 +3136,7 @@ def main(argv: list[str]) -> int:
     else:
         phases = []
         for phase in (object_phase, cauchy_phase, durability_phase, s3_phase, cluster_phase,
-                      gateway_phase, sanitized_phase, graft_phase):
+                      gateway_phase, sanitized_phase, graft_phase, suite_phase):
             root = tempfile.mkdtemp(prefix="chip_smoke_drives_", dir=HERE)
             try:
                 phases.append(phase(torch, mods, root))
@@ -2984,7 +3144,7 @@ def main(argv: list[str]) -> int:
                 shutil.rmtree(root, ignore_errors=True)
                 for k in ("MINIO_TPU_EC_FAMILY", "MINIO_TPU_DEVICE_HEAL"):
                     os.environ.pop(k, None)
-        obj, cph, dur, s3, clu, gw, san, gr = phases
+        obj, cph, dur, s3, clu, gw, san, gr, su = phases
         # each path's own counts, read just after it ran, summed per kernel
         shapes = {k: {} for k in DEFAULT_SHAPES}
         launches = dict.fromkeys(DEFAULT_SHAPES, 0)
@@ -3068,6 +3228,11 @@ def main(argv: list[str]) -> int:
             {k: gr[k] for k in ("seconds", "launches", "dryrun", "dryrun_launches", "diag_smoke")},
             shapes={name: {shape_name(k): n for k, n in per.items()}
                     for name, per in gr["shapes"].items()}, card=card)}))
+    if su:
+        print(json.dumps({"suite_phase": dict(
+            {k: su[k] for k in ("seconds", "launches", "cases", "stats")},
+            shapes={name: {shape_name(k): n for k, n in per.items()}
+                    for name, per in su["shapes"].items()}, card=card)}))
     print(json.dumps({"kernel_shapes": {k: v["shapes"] for k, v in kres.items()}}))
     # K2's device time per packet round (n/32 rounds a message), and the
     # hash core's instructions per round in the hot loop

@@ -67,6 +67,7 @@ __all__ = [
 SERVER_SOFTWARE = f"Python/{sys.version_info[0]}.{sys.version_info[1]} minio_tpu_torch"
 MAX_HEAD = 64 * 1024  # request line + headers
 DRAIN_LIMIT = 1 << 20  # unread request body drained to keep a connection
+LINGER_S = 10.0  # unread request body read and dropped before a close (aiohttp's lingering_time)
 KEEPALIVE_S = 75.0  # an idle keep-alive connection closes after (aiohttp's)
 SHUTDOWN_S = 60.0  # requests in flight get this long at cleanup (aiohttp's)
 
@@ -382,16 +383,12 @@ class _Body:
                 raise _BadRequest("chunk not followed by CRLF")
         return data
 
-    async def drain(self, limit: int) -> bool:
-        """Read and drop what is left, up to ``limit`` bytes; True when the
-        body ended (the connection can serve another request)."""
+    async def discard(self) -> int:
+        """Read and drop what is left; the number of bytes dropped."""
         got = 0
         while not self._eof:
-            b = await self.read(1 << 16)
-            got += len(b)
-            if got > limit:
-                return False
-        return True
+            got += len(await self.read(1 << 16))
+        return got
 
 
 # -- request -------------------------------------------------------------------
@@ -1239,10 +1236,17 @@ class _Conn:
                 await resp.prepare(request)
         await resp.write_eof()
         keep = bool(resp.keep_alive) and request.keep_alive
-        if keep and not body.at_eof():
+        if not body.at_eof():
+            # aiohttp's lingering close: the rest of an unread body is read
+            # and dropped for up to LINGER_S, so a client still sending (a
+            # large PUT refused before its body) reads the answer instead
+            # of a reset; the connection is kept only for a short rest. A
+            # lingering connection is idle: the runner's cleanup closes it
+            self.busy = False
             try:
-                keep = await body.drain(DRAIN_LIMIT)
-            except (ConnectionError, _BadRequest, asyncio.IncompleteReadError):
+                keep = await asyncio.wait_for(body.discard(), LINGER_S) <= DRAIN_LIMIT and keep
+            except (ConnectionError, _BadRequest, asyncio.IncompleteReadError,
+                    asyncio.TimeoutError):
                 keep = False
         return keep
 

@@ -71,10 +71,19 @@ def _same_words(text: str) -> str:
 
 
 class _ToPort(ast.NodeTransformer):
-    """A reference test module's imports and strings as the port's."""
+    """A reference test module's imports and strings as the port's.
 
-    def __init__(self, modules: dict[str, tuple[str, dict[str, str]]]):
+    ``modules`` maps a whole ``from M import ...`` by module (and renames
+    the names it lists); ``names`` maps single names, keyed by their
+    dotted path, to (module, name): such a name is split out of its
+    statement, and the statement's other names keep the mapping by
+    module (``from minio_tpu.ops import rs, rs_jax`` keeps ``rs`` the
+    port's own)."""
+
+    def __init__(self, modules: dict[str, tuple[str, dict[str, str]]],
+                 names: dict[str, tuple[str, str]] | None = None):
         self.modules = modules
+        self.names = names or {}
 
     def visit_Import(self, node):
         for a in node.names:
@@ -85,6 +94,17 @@ class _ToPort(ast.NodeTransformer):
         return node
 
     def visit_ImportFrom(self, node):
+        split = [a for a in node.names
+                 if node.level == 0 and f"{node.module}.{a.name}" in self.names]
+        if split:
+            out = []
+            for a in split:
+                module, name = self.names[f"{node.module}.{a.name}"]
+                out.append(ast.copy_location(ast.ImportFrom(
+                    module=module, names=[ast.alias(name=name, asname=a.asname or a.name)],
+                    level=0), node))
+            node.names = [a for a in node.names if a not in split]
+            return ([self.visit_ImportFrom(node)] if node.names else []) + out
         if node.level == 0 and node.module in self.modules:
             node.module, names = self.modules[node.module]
             for a in node.names:
@@ -187,25 +207,35 @@ class Both:
         return self.analyze_project(paths, rules=rules, jobs=jobs, cache_path=cache_path).findings
 
 
+ANALYZER_ENTRIES = ("analyze_source", "analyze_project", "analyze_paths", "scan_native_source")
+
+
 def load_reference_tests(name: str, namespace: dict, replaced: dict[str, str],
-                         modules: dict[str, tuple[str, dict[str, str]]] | None = None) -> Both:
+                         modules: dict[str, tuple[str, dict[str, str]]] | None = None,
+                         names: dict[str, tuple[str, str]] | None = None) -> Both | None:
     """Execute ``tests/<name>.py`` into ``namespace`` with its imports and
     strings pointed at the port, and its analyzer entry points through
-    ``Both``. ``replaced`` names the cases the port's module then defines
-    anew (each with why the reference's body cannot hold for the port);
-    ``modules`` maps other imports, module to (module, {name: name}): the
-    reference's test helpers to the port's."""
+    ``Both`` (built only for a suite that has one: ``Both`` imports the
+    reference's analyzer). ``replaced`` names the cases the port's module
+    then defines anew (each with why the reference's body cannot hold for
+    the port); the reference's own are kept in the namespace's
+    ``REFERENCE_CASES``. ``modules`` maps other imports, module to
+    (module, {name: name}): the reference's test helpers to the port's;
+    ``names`` maps single imported names (``_ToPort``)."""
     path = os.path.join(ROOT, "tests", f"{name}.py")
     tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
-    tree = ast.fix_missing_locations(_ToPort(modules or {}).visit(tree))
+    tree = ast.fix_missing_locations(_ToPort(modules or {}, names).visit(tree))
     exec(compile(tree, path, "exec"), namespace)
-    both = Both()
-    for entry in ("analyze_source", "analyze_project", "analyze_paths", "scan_native_source"):
-        if entry in namespace:
-            namespace[entry] = getattr(both, entry)
+    both = None
+    if any(entry in namespace for entry in ANALYZER_ENTRIES):
+        both = Both()
+        for entry in ANALYZER_ENTRIES:
+            if entry in namespace:
+                namespace[entry] = getattr(both, entry)
+    reference = namespace.setdefault("REFERENCE_CASES", {})
     for case in replaced:
         assert case in namespace, f"{name} has no case {case}"
-        del namespace[case]
+        reference[case] = namespace.pop(case)
     return both
 
 

@@ -35,6 +35,8 @@ def _echo_app(web):
         mode = request.rel_url.query.get("resp", "echo")
         if mode == "raise":
             raise RuntimeError("handler bug")
+        if mode == "precondition":  # refused before the body is read
+            return web.Response(status=412, body=b"<Error><Code>PreconditionFailed</Code></Error>")
         if mode == "stream":
             resp = web.StreamResponse(status=200, headers={"X-Amz-Meta-S": "1"})
             await resp.prepare(request)
@@ -341,6 +343,51 @@ def test_too_large_and_handler_error(servers):
     raw = b"GET /bkt/k?resp=raise HTTP/1.1\r\nHost: x\r\n\r\n"
     a, p = (_exchange(s.port, raw, ["GET"])[0] for s in servers)
     assert a == p and p[0] == 500 and ("connection", "close") in p[1]
+
+
+def _send_unread(port, mode: str, size: int):
+    """A chunked PUT of ``size`` bytes that the handler answers without
+    reading: the client sends all of it (in another thread, as a client
+    does that writes before it reads), then reads the answer. Returns
+    (what the sender raised, the response)."""
+    head = (f"PUT /bkt/o?resp={mode} HTTP/1.1\r\nHost: x\r\n"
+            "Transfer-Encoding: chunked\r\n\r\n").encode()
+    chunk = 1 << 16
+    piece = b"%x\r\n" % chunk + b"q" * chunk + b"\r\n"
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as s:
+        f = s.makefile("rb")
+        sent: list = []
+
+        def send():
+            try:
+                s.sendall(head)
+                for _ in range(size // chunk):
+                    s.sendall(piece)
+                s.sendall(b"0\r\n\r\n")
+                sent.append(None)
+            except OSError as e:
+                sent.append(e)
+
+        th = threading.Thread(target=send)
+        th.start()
+        th.join(30)
+        assert sent, "the sender did not finish"
+        try:
+            res = _read_response(f, "PUT")
+        except OSError as e:
+            res = e
+        return sent[0], res
+
+
+@pytest.mark.parametrize("mode,status", [("precondition", 412), ("raise", 500)])
+def test_unread_streamed_body_lingers_as_aiohttp(servers, mode, status):
+    # a 9 MiB streamed PUT answered before its body is read: aiohttp reads
+    # and drops the rest (lingering_time, 10 s) before it closes, so the
+    # client finishes sending and reads the answer; a close over unread
+    # bytes would reset the connection under the sender
+    a, p = (_send_unread(s.port, mode, 9 << 20) for s in servers)
+    assert a[0] is None and p[0] is None, (a[0], p[0])
+    assert a[1] == p[1] and p[1][0] == status
 
 
 _PUT = b"PUT /bkt/o HTTP/1.1\r\nHost: x\r\n"

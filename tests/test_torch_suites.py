@@ -8,10 +8,15 @@ and strings pointed at ``minio_tpu_torch``, its test helpers mapped by
 ``HELPERS`` onto the port's (the reference's ``ServerThread`` is the
 port's ``PortServerThread``, ``grid_app`` serves the port's grid on the
 port's front, the worker-pool helpers start ``python -m
-minio_tpu_torch.server``). ``load_port_suite`` adds to each file:
+minio_tpu_torch.server``, ``requires_crypto`` is the conftest's marker),
+and the reference's renamed APIs by ``RENAMED`` and ``NAMES``
+(``TpuDispatcher`` is ``DeviceDispatcher``; ``rs_jax`` is a stand-in
+whose ``get_tpu_codec`` is the port's torch codec). ``load_port_suite``
+adds to each file:
 
-- ``cpu_rung``: a module-scoped autouse fixture that puts the port on its
-  CPU rung (``MINIO_TPU_BACKEND=torch``, ``MINIO_TPU_TORCH_DEVICE=cpu``)
+- ``cpu_rung``: a module-scoped autouse fixture that puts the port on
+  ``RUNG``, its CPU rung (``MINIO_TPU_BACKEND=torch``,
+  ``MINIO_TPU_TORCH_DEVICE=cpu``; ``chip_smoke.py`` sets the card's),
   before any of the file's fixtures start a server, and restores the
   environment after its last case;
 - ``case_time_limit``: every case fails after ``CASE_LIMIT_S`` seconds
@@ -25,12 +30,18 @@ minio_tpu_torch.server``). ``load_port_suite`` adds to each file:
 
 A reference case whose body cannot hold for the port is named in its
 file's ``REPLACED`` with why, and defined anew there under the same name
-(``check_replaced``).
+(``check_replaced``); the reference's own body stays in the file's
+``REFERENCE_CASES``, for a replacement that runs it unchanged
+(``suite_backend``).
 """
 
 from __future__ import annotations
 
 import ast
+import contextlib
+import importlib
+import importlib.util
+import json
 import os
 import signal
 import socket
@@ -42,7 +53,7 @@ import pytest
 
 from minio_tpu_torch.client import S3Client  # noqa: F401 — a mapped helper
 from minio_tpu_torch.server.nodes import free_port_block, wait_online
-from tests.test_torch_analysis import ROOT, check_replaced, load_reference_tests
+from tests.test_torch_analysis import ROOT, _ToPort, check_replaced, load_reference_tests
 
 HERE = "tests.test_torch_suites"
 
@@ -52,16 +63,50 @@ HELPERS = {
     "test_s3_api": (HERE, {"ServerThread": "PortServerThread"}),
     "tests.test_grid": (HERE, {}),
     "test_workers": (HERE, {}),
+    "tests.conftest": (HERE, {}),
 }
+
+# the reference's renamed APIs: its dispatcher class, and its XLA codec
+# module (one name of a statement, ``from minio_tpu.ops import rs, rs_jax``)
+RENAMED = {"minio_tpu.parallel.dispatcher": ("minio_tpu_torch.parallel.dispatcher",
+                                             {"TpuDispatcher": "DeviceDispatcher"})}
+NAMES = {"minio_tpu.ops.rs_jax": (HERE, "rs_jax")}
 
 # the port's CPU rung: its device route, with the kernels' plain versions
 CPU_RUNG = {"MINIO_TPU_BACKEND": "torch", "MINIO_TPU_TORCH_DEVICE": "cpu"}
+# the route the suites' cases run on: the CPU rung here; chip_smoke.py's
+# suite phase sets the card's (the same backend, the device "cuda")
+RUNG = dict(CPU_RUNG)
+
 
 # what a pass of the port must not have touched
 REFERENCE_SERVING = ("minio_tpu.server", "minio_tpu.cluster")
 
 # each suite case's own limit
 CASE_LIMIT_S = 300.0
+
+
+# the reference's tests/conftest.requires_crypto, the one helper the suites
+# take from there (the conftest imports the JAX package)
+requires_crypto = pytest.mark.skipif(
+    importlib.util.find_spec("cryptography") is None,
+    reason="needs the optional 'cryptography' package (SSE / admin-wire encryption)",
+)
+
+
+class _RsJax:
+    """The reference's ``minio_tpu.ops.rs_jax`` as its suites use it: the
+    XLA codec's counterpart is the port's torch codec, on the device the
+    port resolves (``MINIO_TPU_TORCH_DEVICE``)."""
+
+    @staticmethod
+    def get_tpu_codec(data_shards: int, parity_shards: int):
+        from minio_tpu_torch.ops import rs_torch
+
+        return rs_torch.get_torch_codec(data_shards, parity_shards)
+
+
+rs_jax = _RsJax()
 
 
 class PortServerThread:
@@ -124,6 +169,20 @@ def grid_app():
     stop()
 
 
+@contextlib.contextmanager
+def suite_backend():
+    """For a replaced case that runs the reference's body unchanged at the
+    backend its suite sets at its top (``os.environ.setdefault(
+    "MINIO_TPU_BACKEND", "numpy")``, the host plane): the CPU rung's plain
+    HighwayHash cannot meet the case's wall-clock limit. On the card's
+    route (``RUNG``'s device not the CPU) the card's route stays, and the
+    kernels carry the case."""
+    with pytest.MonkeyPatch.context() as mp:
+        if RUNG["MINIO_TPU_TORCH_DEVICE"] == "cpu":
+            mp.setenv("MINIO_TPU_BACKEND", "numpy")
+        yield
+
+
 # -- the per-file fixtures ------------------------------------------------
 
 
@@ -183,7 +242,7 @@ def _fixtures():
     @pytest.fixture(scope="module", autouse=True)
     def cpu_rung():
         with pytest.MonkeyPatch.context() as mp:
-            for k, v in CPU_RUNG.items():
+            for k, v in RUNG.items():
                 mp.setenv(k, v)
             witness_box["w"] = _Witness()
             _watch_constructors(mp, witness_box["w"])
@@ -219,7 +278,7 @@ def load_port_suite(name: str, namespace: dict, replaced: dict[str, str]) -> Non
     module docstring): its helpers through ``HELPERS``, the cases named in
     ``replaced`` left for the caller to define anew, and this harness's
     fixtures added."""
-    load_reference_tests(name, namespace, replaced, modules=HELPERS)
+    load_reference_tests(name, namespace, replaced, modules={**HELPERS, **RENAMED}, names=NAMES)
     namespace["cpu_rung"], namespace["case_time_limit"], namespace["port_only"] = _fixtures()
 
 
@@ -228,12 +287,29 @@ def load_port_suite(name: str, namespace: dict, replaced: dict[str, str]) -> Non
 SUITES = ("test_chaos", "test_repair_plane", "test_zerocopy", "test_streaming_put",
           "test_inline_fastpath", "test_whole_file_bitrot", "test_erasure_set",
           "test_fault_injection", "test_multipart", "test_resume", "test_background",
-          "test_bitrot", "test_cache")
-# the port's file of each suite (test_torch_bitrot.py and
-# test_torch_background.py hold the port's own cases of those layers)
+          "test_bitrot", "test_cache",
+          # the batching core, the second code family, the host data plane
+          "test_dispatcher", "test_cauchy", "test_native", "test_dataplane",
+          "test_checksums", "test_cache_segments", "test_lock_refresh", "test_storage",
+          "test_metacache", "test_metacache_shards", "test_placement", "test_topology",
+          "test_qos", "test_stress",
+          # the S3 surface
+          "test_s3_conformance", "test_s3_conformance2", "test_cors", "test_quota",
+          "test_ops_breadth", "test_sse_compression", "test_madmin_wire",
+          "test_metrics_v3", "test_obs",
+          # IAM, STS and KMS
+          "test_iam", "test_ldap_sts", "test_oidc_sts", "test_kms_api", "test_minkms",
+          "test_etcd_iam", "test_sigv2_kes",
+          # ILM, events, replication and Select
+          "test_tiering", "test_warm_tiers", "test_events_ilm", "test_event_targets",
+          "test_site_replication", "test_select", "test_select_sql")
+# the port's file of each suite (test_torch_bitrot.py,
+# test_torch_background.py and test_torch_cauchy.py hold the port's own
+# cases of those layers)
 PORT_FILE = {s: s.replace("test_", "test_torch_", 1) for s in SUITES}
 PORT_FILE.update(test_background="test_torch_background_suite",
-                 test_bitrot="test_torch_bitrot_suite")
+                 test_bitrot="test_torch_bitrot_suite",
+                 test_cauchy="test_torch_cauchy_suite")
 
 
 def _helper_imports(name: str) -> set[str]:
@@ -257,7 +333,7 @@ def test_every_helper_import_is_mapped(suite):
     """A reference suite that took a helper from another test module would
     get the reference's server; each such import is mapped onto the
     port's (the conftest's markers are plain pytest)."""
-    unmapped = _helper_imports(suite) - set(HELPERS) - {"tests.conftest"}
+    unmapped = _helper_imports(suite) - set(HELPERS)
     assert unmapped == set(), unmapped
 
 
@@ -270,13 +346,137 @@ def test_every_suite_has_its_port_file(suite):
 
 @pytest.mark.parametrize("helper", sorted({n for _, names in HELPERS.values() for n in names.values()}
                                           | {"S3Client", "_free_port", "grid_app",
-                                             "_free_port_block", "_wait_ready"}))
+                                             "_free_port_block", "_wait_ready",
+                                             "requires_crypto", "rs_jax"}))
 def test_mapped_helpers_are_the_ports(helper):
     obj = globals()[helper]
     mod = getattr(obj, "__module__", "") or ""
     assert not mod.startswith("minio_tpu."), (helper, mod)
     if helper == "S3Client":
         assert mod.startswith("minio_tpu_torch."), mod
+
+
+def _replaced(suite: str) -> set[str]:
+    """The cases the suite's port file replaces (its ``REPLACED`` keys)."""
+    path = os.path.join(ROOT, "tests", f"{PORT_FILE[suite]}.py")
+    for node in ast.parse(open(path, encoding="utf-8").read()).body:
+        if isinstance(node, ast.AnnAssign) and getattr(node.target, "id", "") == "REPLACED":
+            return set(ast.literal_eval(node.value))
+    return set()
+
+
+def _imports(suite: str) -> list:
+    """Every import statement of a reference suite that runs against the
+    port: at module level, and in each case its port file does not
+    replace."""
+    path = os.path.join(ROOT, "tests", f"{suite}.py")
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    skip = _replaced(suite)
+    return [n for top in tree.body
+            if not (isinstance(top, (ast.FunctionDef, ast.AsyncFunctionDef)) and top.name in skip)
+            for n in ast.walk(top) if isinstance(n, (ast.Import, ast.ImportFrom))]
+
+
+def _port_imports(suite: str) -> list:
+    """``_imports`` as the loader rewrites them."""
+    port = _ToPort({**HELPERS, **RENAMED}, NAMES)
+    out = []
+    for node in _imports(suite):
+        new = port.visit(node)
+        out.extend(new if isinstance(new, list) else [new])
+    return out
+
+
+@pytest.mark.parametrize("suite", SUITES)
+def test_imports_resolve_to_the_port(suite, monkeypatch):
+    """Every name a suite imports, at module level or in a case that runs
+    as written, is the port's once the loader has rewritten it:
+    ``rs_jax`` is the stand-in over the port's torch codec,
+    ``TpuDispatcher`` the port's ``DeviceDispatcher``, and no module of
+    the JAX package is reached."""
+    from minio_tpu_torch.ops import rs_torch
+    from minio_tpu_torch.parallel.dispatcher import DeviceDispatcher
+
+    monkeypatch.setenv("MINIO_TPU_TORCH_DEVICE", "cpu")
+
+    for node in _port_imports(suite):
+        if isinstance(node, ast.Import):
+            assert all(not a.name.startswith("minio_tpu.") and a.name != "minio_tpu"
+                       for a in node.names), ast.unparse(node)
+            continue
+        assert node.module.split(".")[0] != "minio_tpu", ast.unparse(node)
+        if node.module.split(".")[0] != "minio_tpu_torch" and node.module != HERE:
+            continue  # the standard library and third parties
+        mod = importlib.import_module(node.module)
+        for a in node.names:
+            obj = getattr(mod, a.name, None)
+            if obj is None:
+                obj = importlib.import_module(f"{node.module}.{a.name}")
+            owner = getattr(obj, "__module__", None) or getattr(obj, "__name__", "")
+            assert not str(owner).startswith("minio_tpu."), (ast.unparse(node), owner)
+            bound = a.asname or a.name
+            if bound == "rs_jax":
+                assert obj is importlib.import_module(HERE).rs_jax
+                assert obj.get_tpu_codec(4, 2) is rs_torch.get_torch_codec(4, 2)
+            if bound == "TpuDispatcher":
+                assert obj is DeviceDispatcher
+
+
+def _split_imports() -> list:
+    """(suite, statement) for each import that names a ``NAMES`` entry."""
+    return [(suite, ast.unparse(node)) for suite in SUITES for node in _imports(suite)
+            if isinstance(node, ast.ImportFrom)
+            and any(f"{node.module}.{a.name}" in NAMES for a in node.names)]
+
+
+@pytest.mark.parametrize("suite,statement", _split_imports())
+def test_split_import_keeps_every_name_the_ports(suite, statement):
+    """``from minio_tpu.ops import rs, rs_jax`` becomes two statements:
+    ``rs_jax`` the stand-in, and ``rs`` still the port's own module."""
+    tree = ast.fix_missing_locations(_ToPort({**HELPERS, **RENAMED}, NAMES).visit(
+        ast.parse(statement)))
+    ns: dict = {}
+    exec(compile(tree, suite, "exec"), ns)
+    names = [a.asname or a.name for a in ast.parse(statement).body[0].names]
+    assert set(names) <= set(ns)
+    for name in names:
+        if name == "rs_jax":
+            assert ns[name] is importlib.import_module(HERE).rs_jax
+        else:
+            assert ns[name] is importlib.import_module(f"minio_tpu_torch.ops.{name}")
+
+
+@pytest.fixture(scope="module")
+def loaded_alone():
+    """Each suite loaded through ``load_port_suite`` in a fresh process
+    (no conftest, no reference module imported before): the JAX package's
+    modules each load brought in (dropped again after each, so the next
+    suite's load would import them anew)."""
+    code = (
+        "import json, sys\n"
+        "from tests.test_torch_suites import PORT_FILE, ROOT, SUITES, load_port_suite\n"
+        "out = {}\n"
+        "for s in SUITES:\n"
+        "    load_port_suite(s, {'__name__': PORT_FILE[s],\n"
+        "                        '__file__': f'{ROOT}/tests/{PORT_FILE[s]}.py'}, {})\n"
+        "    out[s] = sorted(m for m in sys.modules\n"
+        "                    if m == 'minio_tpu' or m.startswith('minio_tpu.'))\n"
+        "    for m in out[s]:\n"
+        "        del sys.modules[m]\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, **CPU_RUNG)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("suite", SUITES)
+def test_loading_a_suite_imports_nothing_of_the_jax_package(loaded_alone, suite):
+    """A suite with no analyzer entry point builds no ``Both`` (which
+    imports the reference's analyzer), so the card's host, which has no
+    JAX, can load it."""
+    assert loaded_alone[suite] == []
 
 
 def test_guard_sees_a_reference_server(tmp_path):
