@@ -152,11 +152,26 @@ Phases (any failure raises and the script exits non-zero):
    full 1 MiB stripe blocks (``test_cauchy``), its encode identity held
    against K3 itself and its family obs record (which sets the numpy
    backend itself), and the segment cache's (``test_cache_segments``,
-   the coherence case under 4 readers first). Each case's seconds and
-   its launches by kernel and shape are printed; counts are zeroed just
-   before the first case and read after the last. K1 encode, K3 and K2
-   must have launched, no dispatcher the cases reached may have moved a
-   fault counter, and no ``minio_tpu`` module may be imported at the end.
+   the coherence case under 4 readers first); then the port's card-only
+   cases (``tests/test_torch_card.py``, all of it: each kernel against
+   its plain version), the degradation ladder under injected device
+   faults (``test_chaos``'s ladder and slow-batch cases, the port's
+   versions), the erasure set, whole-file bitrot, multipart and the
+   metadata cache's cases whose objects carry full stripe blocks,
+   ``test_fault_injection``'s degraded reads and ``test_chaos``'s hedged
+   read and drive-failure storm, the streaming PUT and the zero-copy
+   arenas (their device-route variants), and the repair plane. Each
+   case's seconds and its launches by kernel and shape are printed;
+   counts are zeroed just before the first case and read after the last.
+   It fails if a case fails, skips or does not run, or launches no kernel
+   (but the two in ``SUITE_IDLE``); K1 encode and decode, K3 and K2 must
+   have launched; no dispatcher the cases reached may have moved a fault
+   counter, except those the ladder case built, which must show its walk
+   (two device faults or more, one demotion, a probe, a promotion, no
+   fused-kernel failure) with K1 at 4+2, B=16, n=1,024 launched twice or
+   more, the base encode and the batch after the promotion (a ``ladder``
+   line prints their counters and the seconds from the faults clearing to
+   the promotion); and no ``minio_tpu`` module may be imported at the end.
 11. Hold each kernel against its plain PyTorch version on the card, byte
    for byte, at every shape phases 2-10 launched it at, and a sample
    against the numpy reference codec; time both with CUDA events (K1's
@@ -196,8 +211,9 @@ them and both as MiB/s, the witness counts, violations, the scrape, the
 loop stalls with their frames, launches by shape), one ``graft_phase``
 line (per-step seconds, the dry run's backend, world and seconds, its
 ranks' K2 launches, the diag pool's launches by shape, the diag smoke's
-last line, launches by shape), one ``suite_phase`` line (each case's
-seconds and launches by shape, the dispatchers' counters), K2's
+last line, launches by shape), one ``ladder`` line and one
+``suite_phase`` line (each case's seconds and launches by shape, the
+dispatchers' counters, the ladder's), K2's
 device time per
 packet round, the hash
 core's SASS instructions per round (``cuobjdump``, where the toolkit has
@@ -2983,11 +2999,109 @@ SUITE_CASES = (
     "test_torch_cauchy_suite.py::test_multipart_legacy_upload_defaults_to_rs",
     # sets the numpy backend itself: run on the card, its launches not counted on
     "test_torch_cauchy_suite.py::test_obs_records_carry_family",
+    # the port's card-only cases, the whole file
+    "test_torch_card.py",
+    # the degradation ladder under injected device faults, and a slow batch
+    # (the port's versions: the reference's build its XLA dispatcher)
+    "test_torch_chaos.py::test_backend_degradation_round_trip",
+    "test_torch_chaos.py::test_tpu_slow_batch_injection",
+    # the erasure set (EC 2+2 at n = 524,288; 8+8), whole-file bitrot,
+    # multipart, the metadata cache
+    "test_torch_erasure_set.py::test_put_get_roundtrip[3145745]",
+    "test_torch_erasure_set.py::test_range_reads",
+    "test_torch_erasure_set.py::test_read_window_one",
+    "test_torch_erasure_set.py::test_read_fails_beyond_parity",
+    "test_torch_erasure_set.py::test_degraded_read_one_drive_gone",
+    "test_torch_erasure_set.py::test_degraded_read_bitrot_corruption",
+    "test_torch_erasure_set.py::test_degraded_read_ec8_two_drives_down",
+    "test_torch_erasure_set.py::test_heal_object_missing_shard",
+    "test_torch_erasure_set.py::test_heal_object_corrupted_shard",
+    "test_torch_erasure_set.py::test_heal_commit_sweeps_staging_on_rename_failure",
+    "test_torch_whole_file_bitrot.py::test_whole_file_get_roundtrip",
+    "test_torch_whole_file_bitrot.py::test_whole_file_ranged_reads",
+    "test_torch_whole_file_bitrot.py::test_whole_file_bitrot_detected_and_tolerated",
+    "test_torch_whole_file_bitrot.py::test_whole_file_heal_preserves_format",
+    "test_torch_multipart.py::test_multipart_roundtrip",
+    "test_torch_cache.py::test_dead_set_entries_reclaim_first_under_pressure",
+    # storage faults: GETs around down and dying drives and a straggler
+    # (their PUTs K1 at 4+4; the reads decode on the host), a drive-failure storm
+    "test_torch_fault_injection.py::test_get_reconstructs_across_down_matrix[1]",
+    "test_torch_fault_injection.py::test_get_reconstructs_across_down_matrix[2]",
+    "test_torch_fault_injection.py::test_get_reconstructs_across_down_matrix[3]",
+    "test_torch_fault_injection.py::test_get_reconstructs_across_down_matrix[4]",
+    "test_torch_fault_injection.py::test_drive_dying_mid_read",
+    "test_torch_chaos.py::test_hedged_read_decodes_around_straggler",
+    "test_torch_chaos.py::test_drive_failure_storm_family_ingress",
+    # streaming PUT and the zero-copy arenas: the numpy-* variants of
+    # test_streaming_put_byte_identity launch nothing and are left out, as
+    # is test_dispatcher_exact_fit_arena_direct, which holds the port
+    # against the reference's JAX route in its own body (the card's
+    # machine has no JAX)
+    "test_torch_streaming_put.py::test_streaming_put_roundtrip",
+    "test_torch_streaming_put.py::test_iter_encode_matches_encode_part",
+    "test_torch_streaming_put.py::test_http_streaming_put_and_multipart",
+    "test_torch_streaming_put.py::test_http_signed_payload_still_buffers",
+    "test_torch_streaming_put.py::test_streaming_sse_header_falls_back_to_encrypting",
+    "test_torch_zerocopy.py::test_streaming_put_byte_identity[jax-reedsolomon]",
+    "test_torch_zerocopy.py::test_streaming_put_byte_identity[jax-cauchy]",
+    "test_torch_zerocopy.py::test_iter_encode_zc_matches_legacy_shards[reedsolomon]",
+    "test_torch_zerocopy.py::test_iter_encode_zc_matches_legacy_shards[cauchy]",
+    "test_torch_zerocopy.py::test_degraded_get_byte_identity[reedsolomon]",
+    "test_torch_zerocopy.py::test_degraded_get_byte_identity[cauchy]",
+    "test_torch_zerocopy.py::test_streaming_put_staging_zero",
+    "test_torch_zerocopy.py::test_mid_put_drive_failure_keeps_pool_clean",
+    "test_torch_zerocopy.py::test_mid_get_invalidation_never_poisons_served_chunks",
+    "test_torch_zerocopy.py::test_copy_site_obs_record",
+    "test_torch_zerocopy.py::test_pallas_interpret_encode_from_arena_view",
+    # the repair plane: cauchy 8+8 PUTs (K3 + K2); the repair runs on the host
+    "test_torch_repair_plane.py::test_windowed_repair_ranges_across_windows",
+    "test_torch_repair_plane.py::test_plan_hedges_on_straggling_helper",
+    "test_torch_repair_plane.py::test_plan_block_falls_back_on_bitrot",
+    "test_torch_repair_plane.py::test_heal_straggler_partial_repairs_and_reverifies",
+    "test_torch_repair_plane.py::test_heal_corrupt_helper_falls_back_per_block",
+    "test_torch_repair_plane.py::test_heal_serial_baseline_still_correct",
+    "test_torch_repair_plane.py::test_overwrite_racing_plan_withdraws_cleanly",
+)
+# the cases that may launch no kernel; every other case must launch one
+SUITE_IDLE = (
+    "test_torch_cauchy_suite.py::test_obs_records_carry_family",  # the numpy backend
+    "test_torch_dispatcher.py::test_dispatch_error_propagates",  # refused before a launch
+    "test_torch_dispatcher.py::test_replaced_cases_are_the_ports",  # the file's own check
 )
 # the card's route for the suites (tests/test_torch_suites.RUNG)
 CARD_RUNG = {"MINIO_TPU_BACKEND": "torch", "MINIO_TPU_TORCH_DEVICE": "cuda"}
 # a dispatcher counter that moves only when the device route failed
 SUITE_FAULTS = ("fused_failures", "device_faults", "demotions")
+# the case that walks the degradation ladder on purpose, and the K1 shape
+# of its base encode and of its first batch after the promotion
+LADDER_CASE = "tests/test_torch_chaos.py::test_backend_degradation_round_trip"
+LADDER_K1 = ("encode", 16, 4, 2, 1024)
+
+
+def suite_entry_runs(entry: str, nodeid: str) -> bool:
+    """Whether the case ``nodeid`` (relative to the repo's root) is one
+    that the ``SUITE_CASES`` entry names: the case, a parameter of it, or
+    any case of a whole file."""
+    want = f"tests/{entry}"
+    if "::" not in entry:
+        return nodeid.startswith(f"{want}::")
+    return nodeid == want or nodeid.startswith(f"{want}[")
+
+
+def suite_faults(case, s0: dict, s1: dict) -> list:
+    """What the suite phase refuses in one dispatcher's counters, from
+    ``s0`` before the phase to ``s1`` after it; ``case`` is the node id
+    of the case that built it (None: built before the phase). Every fault
+    counter stays put, except in the ladder case's dispatchers, which must
+    walk the ladder as the case asserts: two device faults or more, one
+    demotion, a probe and a promotion, and no fused-kernel failure."""
+    moved = {f: s1[f] - s0[f] for f in (*SUITE_FAULTS, "promotions", "probes")}
+    if case != LADDER_CASE:
+        return [f"{f} moved by {moved[f]}" for f in SUITE_FAULTS if moved[f]]
+    want = {"fused_failures": moved["fused_failures"] == 0,
+            "device_faults": moved["device_faults"] >= 2, "demotions": moved["demotions"] == 1,
+            "promotions": moved["promotions"] >= 1, "probes": moved["probes"] >= 1}
+    return [f"{f} moved by {moved[f]}" for f, ok in want.items() if not ok]
 
 
 def suite_phase(torch, mods, root: str) -> dict:
@@ -2997,6 +3111,8 @@ def suite_phase(torch, mods, root: str) -> dict:
 
     import pytest
 
+    from minio_tpu_torch import fault
+    from minio_tpu_torch.fault import registry
     from minio_tpu_torch.parallel import dispatcher
 
     env = dict(os.environ)
@@ -3005,24 +3121,39 @@ def suite_phase(torch, mods, root: str) -> dict:
     pkg = types.ModuleType("tests")
     pkg.__path__ = [os.path.join(HERE, "tests")]
     sys.modules["tests"] = pkg
-    # every dispatcher the cases reach: the registry's and those they build
-    reached = {id(d): (d, d.stats_snapshot()) for d in dispatcher._dispatchers.values()}
-    init = dispatcher.DeviceDispatcher.__init__
+    # every dispatcher the cases reach: the registry's and those they
+    # build, each with the case that built it
+    current: dict = {"case": None}
+    reached = {id(d): (d, d.stats_snapshot(), None) for d in dispatcher._dispatchers.values()}
+    init, clear, emit = dispatcher.DeviceDispatcher.__init__, fault.clear, registry.emit
+    events: list = []  # (seconds, what, case): fault rules cleared, ladder moves
 
     def watched(self, *a, **kw):
         init(self, *a, **kw)
-        reached[id(self)] = (self, self.stats_snapshot())
+        reached[id(self)] = (self, self.stats_snapshot(), current["case"])
+
+    def watched_clear(*a, **kw):
+        events.append((time.perf_counter(), "clear", current["case"]))
+        return clear(*a, **kw)
+
+    def watched_emit(name, **fields):
+        if name in ("backend.demote", "backend.promote"):
+            events.append((time.perf_counter(), name, current["case"]))
+        return emit(name, **fields)
 
     cases: list = []
     failed: list = []
+    skipped: list = []
 
     class CaseClock:
         @pytest.hookimpl(hookwrapper=True)
         def pytest_runtest_protocol(self, item, nextitem):
             l0, s0 = _counts(mods)
+            current["case"] = item.nodeid
             t0 = time.perf_counter()
             yield
             seconds = time.perf_counter() - t0
+            current["case"] = None
             l1, s1 = _counts(mods)
             shapes = {name: {shape_name(k): n - s0[name].get(k, 0) for k, n in per.items()
                              if n != s0[name].get(k, 0)} for name, per in s1.items()}
@@ -3036,9 +3167,12 @@ def suite_phase(torch, mods, root: str) -> dict:
         def pytest_runtest_logreport(self, report):
             if report.failed:
                 failed.append(f"{report.nodeid} ({report.when})")
+            elif report.skipped:
+                skipped.append(f"{report.nodeid} ({report.when})")
 
     t_phase = time.perf_counter()
     dispatcher.DeviceDispatcher.__init__ = watched
+    fault.clear, registry.emit = watched_clear, watched_emit
     try:
         from tests import test_torch_suites
 
@@ -3053,6 +3187,7 @@ def suite_phase(torch, mods, root: str) -> dict:
         launches, shapes = _counts(mods)  # counts read just after
     finally:
         dispatcher.DeviceDispatcher.__init__ = init
+        fault.clear, registry.emit = clear, emit
         os.environ.clear()
         os.environ.update(env)
         if prev_tests is None:
@@ -3060,28 +3195,51 @@ def suite_phase(torch, mods, root: str) -> dict:
         else:
             sys.modules["tests"] = prev_tests
     seconds = time.perf_counter() - t_phase
-    if rc != 0 or failed or len(cases) < len(SUITE_CASES):
-        fail(f"the suite phase: pytest exit {rc}, failed {failed}, {len(cases)} cases ran")
-    for name in ("fused_encode_hash", "gf_apply", "hh_chain"):
+    missing = [e for e in SUITE_CASES if not any(suite_entry_runs(e, c["case"]) for c in cases)]
+    if rc != 0 or failed or skipped or missing:
+        fail(f"the suite phase: pytest exit {rc}, failed {failed}, skipped {skipped}, "
+             f"not run {missing}")
+    idle = [c["case"] for c in cases
+            if not any(c["launches"].values()) and c["case"][len("tests/"):] not in SUITE_IDLE]
+    if idle:
+        fail(f"the suite phase: these cases launched no kernel on the card: {idle}")
+    for name in launches:
         if not launches[name]:
             fail(f"the suite phase launched no {name}: {launches}")
     stats = {}
-    for d, s0 in reached.values():
+    ladder = {}
+    for d, s0, case in reached.values():
         s1 = d.stats_snapshot()
         key = f"{d.codec.data_shards}+{d.codec.parity_shards} n={d.n}"
-        for f in SUITE_FAULTS:
-            if s1[f] != s0[f]:
-                fail(f"dispatcher {key}: {f} moved in the suite phase")
+        bad = suite_faults(case, s0, s1)
+        if bad:
+            fail(f"dispatcher {key} built by {case}: {', '.join(bad)} in the suite phase")
         moved = {f: s1[f] - s0[f] for f in ("dispatches", "blocks", "fused", "numpy_blocks",
                                              "pad_blocks")}
         moved["max_batch"] = s1["max_batch"]  # over the dispatcher's life
         if moved["dispatches"]:
             stats.setdefault(key, []).append(moved)
+        if case == LADDER_CASE:
+            ladder[key] = {f: s1[f] - s0[f] for f in (*SUITE_FAULTS, "promotions", "probes",
+                                                      "numpy_blocks", "fused")}
+    if not ladder:
+        fail(f"the suite phase: {LADDER_CASE} built no dispatcher")
+    k1 = next(c for c in cases if c["case"] == LADDER_CASE)["shapes"].get(
+        "fused_encode_hash", {}).get(shape_name(LADDER_K1), 0)
+    if k1 < 2:
+        fail(f"the ladder case launched K1 {shape_name(LADDER_K1)} {k1} times (want >= 2: "
+             f"the base encode and the batch after the promotion)")
+    mine = [(t, what) for t, what, case in events if case == LADDER_CASE]
+    promoted = [t for t, what in mine if what == "backend.promote"]
+    cleared = [t for t, what in mine if what == "clear" and promoted and t <= promoted[0]]
+    ladder = {"dispatchers": ladder, "k1_launches": {shape_name(LADDER_K1): k1},
+              "clear_to_promote_s": promoted[0] - cleared[-1] if cleared else None}
+    print(json.dumps({"ladder": ladder}), flush=True)
     jax_mods = sorted(m for m in sys.modules if m == "minio_tpu" or m.startswith("minio_tpu."))
     if jax_mods:
         fail(f"the suite phase imported the JAX package: {jax_mods[:8]}")
     return {"launches": launches, "shapes": shapes, "seconds": {"phase_s": seconds},
-            "cases": cases, "stats": stats}
+            "cases": cases, "stats": stats, "ladder": ladder}
 
 
 def main(argv: list[str]) -> int:
@@ -3230,14 +3388,15 @@ def main(argv: list[str]) -> int:
                     for name, per in gr["shapes"].items()}, card=card)}))
     if su:
         print(json.dumps({"suite_phase": dict(
-            {k: su[k] for k in ("seconds", "launches", "cases", "stats")},
+            {k: su[k] for k in ("seconds", "launches", "cases", "stats", "ladder")},
             shapes={name: {shape_name(k): n for k, n in per.items()}
                     for name, per in su["shapes"].items()}, card=card)}))
     print(json.dumps({"kernel_shapes": {k: v["shapes"] for k, v in kres.items()}}))
     # K2's device time per packet round (n/32 rounds a message), and the
     # hash core's instructions per round in the hot loop
     rounds = {r["shape"]: r["ms"] * 1e6 / (int(r["shape"].rsplit("n=", 1)[1]) // 32)
-              for r in kres["hh_chain"]["shapes"] if "ms" in r}
+              for r in kres["hh_chain"]["shapes"]
+              if "ms" in r and int(r["shape"].rsplit("n=", 1)[1]) >= 32}
     aligned, odd, same = (rounds[f"alignment pair: rows=8192 n={n}"] for n in (
         65536, -(-MIB // 12) // 2, (-(-MIB // 12) // 2) & ~31))
     print(json.dumps({"k2_ns_per_round": rounds, "unaligned_over_aligned": odd / aligned,

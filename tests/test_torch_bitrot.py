@@ -113,35 +113,3 @@ def test_fused_decode_disabled_by_knob(monkeypatch):
     assert bitrot_torch._try_fused_decode(
         rs_torch.get_torch_codec(8, 8), surv, tuple(range(1, 9)), (0,), MINIO_KEY
     ) is None
-
-
-@pytest.mark.cuda
-def test_cuda_hash_matches_plain():
-    """On a card: the chain kernel against the plain version (odd lengths,
-    row counts that are not multiples of 8)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run via chip_smoke.py on the H100)")
-    for n in (0, 1, 31, 32, 33, 87382):
-        x = torch.randint(0, 256, (37, n), dtype=torch.uint8, device="cuda")
-        assert torch.equal(bitrot_cuda.hash256_blocks(x).cpu(),
-                           bitrot_torch.hash256_blocks_plain(x.cpu()))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [33, 34, 38, 65, 70, 95, 161])
-def test_cuda_hash_odd_rows_end_of_buffer(n):
-    """Rows of odd length start at every alignment, and the last one ends
-    at the last byte of its buffer: the whole-packet loop's look-ahead
-    word must not read past a row's end, and the digests must not change."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run via chip_smoke.py on the H100)")
-    rows = 9
-    g = torch.Generator().manual_seed(n)
-    host = torch.randint(0, 256, (rows * n,), dtype=torch.uint8, generator=g)
-    buf = torch.empty(rows * n, dtype=torch.uint8, device="cuda")
-    buf.copy_(host)
-    got = bitrot_cuda.hash256_blocks(buf.view(rows, n))
-    torch.cuda.synchronize()
-    want = bitrot_torch.hash256_blocks_plain(host.view(rows, n))
-    assert torch.equal(got.cpu(), want)
-    assert np.array_equal(got.cpu().numpy(), hash256_batch_numpy(host.view(rows, n).numpy()))

@@ -289,13 +289,3 @@ def test_dispatcher_founded_by_either_family_serves_both():
         st = disp.stats_snapshot()
         assert st["numpy_blocks"] == st["device_faults"] == st["fused_failures"] == 0
         assert st["fused"] == 1  # the reedsolomon batch, padded to 16
-
-
-@pytest.mark.cuda
-def test_cuda_k3_matches_plain():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run via chip_smoke.py on the H100)")
-    w = _composite_bits(8, 8)
-    x = torch.randint(0, 256, (4, 8, 2 * 4097), dtype=torch.uint8).cuda()
-    got = rs_cuda.gf_apply_cuda(w, x, 8, sub=2)
-    assert torch.equal(got, rs_cuda.gf_apply_plain(w, x, 8, sub=2))

@@ -250,16 +250,6 @@ def test_build_interface_declares_void_pointers():
     assert _build.key_words(bytes(range(32)))[0] == int.from_bytes(bytes(range(8)), "little")
 
 
-@pytest.mark.cuda
-def test_cuda_fused_matches_plain(encoded):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run via chip_smoke.py on the H100)")
-    data, par, dig = encoded
-    gp, gd = fused_cuda.fused_encode_hash(torch.from_numpy(data).cuda(), D, P)
-    assert np.array_equal(gp.cpu().numpy(), par)
-    assert np.array_equal(gd.cpu().numpy(), dig)
-
-
 def test_gf_launch_alone_is_card_only(encoded):
     """``gf_apply_only`` (K1's first launch, timed apart by the smoke) has
     no plain route: a CPU tensor is refused, and no K1 launch is counted."""

@@ -132,6 +132,45 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+# the port's card-only cases: the card's machine, which has no JAX,
+# collects this file in chip_smoke.py's suite phase
+CARD_TESTS = os.path.join(ROOT, "tests", "test_torch_card.py")
+
+
+def test_card_tests_import_nothing_of_jax():
+    bad = [(m, ln) for m, ln in _imported_roots(CARD_TESTS) if m in FORBIDDEN]
+    assert not bad, f"tests/test_torch_card.py imports {bad}"
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('test_torch_card', {CARD_TESTS!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        "print(bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_card_cases_live_in_the_card_file():
+    """Every ``cuda``-marked case of the port is in tests/test_torch_card.py:
+    a file that imports the JAX package cannot be collected on the card's
+    machine, so a card case there would run nowhere."""
+    tests = os.path.join(ROOT, "tests")
+    marked = []
+    for f in sorted(os.listdir(tests)):
+        if f.startswith("test_torch_") and f.endswith(".py"):
+            tree = ast.parse(open(os.path.join(tests, f), encoding="utf-8").read())
+            if any(isinstance(n, ast.Attribute) and n.attr == "cuda"
+                   and isinstance(n.value, ast.Attribute) and n.value.attr == "mark"
+                   for n in ast.walk(tree)):
+                marked.append(f)
+    assert marked == ["test_torch_card.py"], marked
+
+
 def test_server_import_pulls_in_no_optional_package():
     code = (
         "import sys\n"

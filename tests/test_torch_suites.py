@@ -51,6 +51,7 @@ import threading
 
 import pytest
 
+import chip_smoke
 from minio_tpu_torch.client import S3Client  # noqa: F401 — a mapped helper
 from minio_tpu_torch.server.nodes import free_port_block, wait_online
 from tests.test_torch_analysis import ROOT, _ToPort, check_replaced, load_reference_tests
@@ -358,7 +359,11 @@ def test_mapped_helpers_are_the_ports(helper):
 
 def _replaced(suite: str) -> set[str]:
     """The cases the suite's port file replaces (its ``REPLACED`` keys)."""
-    path = os.path.join(ROOT, "tests", f"{PORT_FILE[suite]}.py")
+    return _replaced_in(os.path.join(ROOT, "tests", f"{PORT_FILE[suite]}.py"))
+
+
+def _replaced_in(path: str) -> set[str]:
+    """The ``REPLACED`` keys of the test file at ``path`` (none if it has none)."""
     for node in ast.parse(open(path, encoding="utf-8").read()).body:
         if isinstance(node, ast.AnnAssign) and getattr(node.target, "id", "") == "REPLACED":
             return set(ast.literal_eval(node.value))
@@ -477,6 +482,97 @@ def test_loading_a_suite_imports_nothing_of_the_jax_package(loaded_alone, suite)
     imports the reference's analyzer), so the card's host, which has no
     JAX, can load it."""
     assert loaded_alone[suite] == []
+
+
+# -- chip_smoke.py's suite phase: what it runs on the card ------------------
+
+_COLLECT = """
+import json, sys
+import pytest
+
+class Items:
+    found = {}
+
+    def pytest_collection_modifyitems(self, items):
+        for it in items:
+            self.found[it.nodeid] = it.function.__code__.co_filename
+
+items = Items()
+rc = pytest.main(["--collect-only", "-q", "-p", "no:cacheprovider", "-p", "no:randomly",
+                  "--noconftest", "-W", "ignore::pytest.PytestUnknownMarkWarning"]
+                 + sys.argv[1:], plugins=[items])
+print(json.dumps({"rc": int(rc), "items": items.found}))
+"""
+
+
+@pytest.fixture(scope="module")
+def smoke_collected():
+    """Every case of ``chip_smoke.SUITE_CASES``, collected as the smoke's
+    suite phase collects them (``--noconftest``, in one pytest session):
+    node id -> the file its function was compiled from."""
+    files = sorted({c.split("::")[0] for c in chip_smoke.SUITE_CASES})
+    r = subprocess.run([sys.executable, "-c", _COLLECT] + [f"tests/{f}" for f in files],
+                       cwd=ROOT, env=dict(os.environ, **CPU_RUNG), capture_output=True,
+                       text=True, timeout=300)
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["rc"] == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    return out["items"]
+
+
+@pytest.mark.parametrize("entry", chip_smoke.SUITE_CASES)
+def test_smoke_suite_case_is_collected(smoke_collected, entry):
+    """Each entry of the smoke's suite phase names a file that exists and
+    a case that pytest collects there (a whole file: at least one case),
+    so a renamed case fails here instead of dropping out of the card's
+    run; and a reference case the file's ``REPLACED`` swapped out runs
+    only as the port's version."""
+    path, _, case = entry.partition("::")
+    here = os.path.join(ROOT, "tests", path)
+    assert os.path.exists(here), entry
+    got = {nid: src for nid, src in smoke_collected.items()
+           if chip_smoke.suite_entry_runs(entry, nid)}
+    assert got, f"{entry} is not collected"
+    replaced = _replaced_in(here)
+    for nid, src in got.items():
+        if nid.split("::")[1].split("[")[0] in replaced:
+            assert src == here, f"{nid} runs the reference's body ({src})"
+
+
+@pytest.mark.parametrize("entry", chip_smoke.SUITE_IDLE)
+def test_smoke_idle_case_is_one_it_runs(smoke_collected, entry):
+    """A case the suite phase lets launch no kernel is one it runs."""
+    assert any(chip_smoke.suite_entry_runs(e, f"tests/{entry}") for e in chip_smoke.SUITE_CASES)
+    assert f"tests/{entry}" in smoke_collected
+
+
+def _dispatcher_stats(**moved) -> tuple[dict, dict]:
+    """A dispatcher's fault and ladder counters before and after a phase."""
+    s0 = dict.fromkeys((*chip_smoke.SUITE_FAULTS, "promotions", "probes"), 3)
+    return s0, {k: v + moved.get(k, 0) for k, v in s0.items()}
+
+
+@pytest.mark.parametrize("case", [None, "tests/test_torch_chaos.py::test_tpu_slow_batch_injection",
+                                  "tests/test_torch_erasure_set.py::test_range_reads"])
+@pytest.mark.parametrize("counter", ["fused_failures", "device_faults", "demotions"])
+def test_smoke_refuses_a_fault_outside_the_ladder_case(case, counter):
+    assert chip_smoke.suite_faults(case, *_dispatcher_stats()) == []
+    assert chip_smoke.suite_faults(case, *_dispatcher_stats(**{counter: 1})) == [
+        f"{counter} moved by 1"]
+
+
+def test_smoke_ladder_case_must_walk_the_ladder():
+    """The ladder case's dispatchers must show what the case asserts: two
+    device faults or more, one demotion, a probe and a promotion, and no
+    fused-kernel failure; a ladder that demoted and never promoted fails."""
+    case = chip_smoke.LADDER_CASE
+    walked = {"device_faults": 3, "demotions": 1, "promotions": 1, "probes": 2}
+    assert chip_smoke.suite_faults(case, *_dispatcher_stats(**walked)) == []
+    assert chip_smoke.suite_faults(case, *_dispatcher_stats(**dict(walked, promotions=0))) == [
+        "promotions moved by 0"]
+    assert chip_smoke.suite_faults(case, *_dispatcher_stats(**dict(walked, fused_failures=1))) == [
+        "fused_failures moved by 1"]
+    assert len(chip_smoke.suite_faults(case, *_dispatcher_stats())) == 4  # never walked
+    assert any(chip_smoke.suite_entry_runs(e, case) for e in chip_smoke.SUITE_CASES)
 
 
 def test_guard_sees_a_reference_server(tmp_path):

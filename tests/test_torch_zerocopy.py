@@ -11,7 +11,7 @@ REPLACED: dict[str, str] = {
     "test_pallas_interpret_encode_from_arena_view":
         "runs the reference's Pallas kernel through minio_tpu.ops.rs_jax / rs_pallas, which "
         "have no counterpart in the port; the port's case feeds the same arena view to the "
-        "torch codec's encode and to K3's wrapper",
+        "torch codec's encode and to K3's wrapper on the codec's device",
     "test_dispatcher_exact_fit_arena_direct":
         "a deliberate difference: the port's fused_cuda.supports gates on shapes only, so at "
         "4 blocks the fused route pads the batch to its floor of 16 and takes the bucket "
@@ -28,10 +28,10 @@ def test_replaced_cases_are_the_ports():
 
 def test_pallas_interpret_encode_from_arena_view():
     """An arena-backed [B, d, n] view is a bit-exact input of the port's
-    device encode: the torch codec (which takes the view without a copy)
-    and K3's wrapper give the GF reference's parity."""
-    import torch
-
+    device encode: the torch codec and K3's wrapper, each given the view
+    as the codec's device holds it, give the GF reference's parity. On the
+    CPU the codec takes the view without a copy; on a card it is copied
+    there once, and K3 runs on the card."""
     from minio_tpu_torch.erasure import bufpool
     from minio_tpu_torch.ops import gf, rs, rs_cuda, rs_torch
 
@@ -44,13 +44,14 @@ def test_pallas_interpret_encode_from_arena_view():
         arena = lease.array[: 2 * d * n].reshape(2, d, n)
         arena[:] = RNG.integers(0, 256, size=(2, d, n), dtype=np.uint8)  # noqa: F821
         view = tc.as_tensor(arena)
-        assert view.data_ptr() == arena.ctypes.data  # no copy on the way in
-        outs = (tc.encode_blocks(arena),
-                rs_cuda.gf_apply_cuda(tc.w_encode, torch.from_numpy(arena), p))
+        if view.device.type == "cpu":
+            assert view.data_ptr() == arena.ctypes.data  # no copy on the way in
+        outs = (tc.encode_blocks(arena), rs_cuda.gf_apply_cuda(tc.w_encode, view, p))
         for out in outs:
+            assert out.device == view.device
             for b in range(2):
                 np.testing.assert_array_equal(
-                    out[b].numpy(), gf.gf_matvec_blocks(codec.parity_matrix, arena[b]))
+                    out[b].cpu().numpy(), gf.gf_matvec_blocks(codec.parity_matrix, arena[b]))
     finally:
         lease.release()
 
