@@ -441,6 +441,11 @@ _ALL: list[Knob] = [
     _k("MINIO_TPU_TRACE_BUFFER", "1000", "server",
        "Per-subscriber trace stream queue depth; a consumer slower than "
        "the record rate drops (counted) records beyond it."),
+    _k("MINIO_TPU_TRACE_RING", "262144", "server",
+       "Closed spans the server keeps in memory without a trace "
+       "subscriber (the newest; older ones are overwritten and "
+       "counted), stamped on the monotonic clock; 0 turns the ring "
+       "off."),
     _k("MINIO_TPU_WORKERS", "1", "server",
        "SO_REUSEPORT worker pool size: N forks N serving processes "
        "sharing the listen port over the same drives (coherent via "

@@ -36,6 +36,7 @@ from typing import Iterator
 
 import numpy as np
 
+from .. import obs
 from ..ops import rs
 from ..ops.highwayhash import hash256_batch_numpy
 from . import bitrot_io, bufpool
@@ -255,9 +256,11 @@ class ErasureCoder:
         ):
             from ..parallel.dispatcher import get_dispatcher
 
-            return get_dispatcher(self._dev, blocks.shape[2]).encode(
-                blocks, codec=self._dev
-            )
+            # the request's view of the dispatcher: queue, batch, copies
+            with obs.span(obs.TYPE_INTERNAL, "erasure.put.encode-wait"):
+                return get_dispatcher(self._dev, blocks.shape[2]).encode(
+                    blocks, codec=self._dev
+                )
         family_stats_add(self.family, "encode_blocks", blocks.shape[0])
         return encode_blocks_numpy(self._np, blocks, self.family)
 

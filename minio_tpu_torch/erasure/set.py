@@ -121,6 +121,21 @@ def _native_plane_enabled(device_active: bool = False) -> bool:
 
     return native.dataplane_available()
 
+def _body_waits(reader):
+    """The streaming PUT's body, each wait for its next chunk an
+    ``erasure.put.body-wait`` span (blocked on the body pump's queue)."""
+    it = iter(reader)
+    while True:
+        with obs.span(obs.TYPE_INTERNAL, "erasure.put.body-wait"):
+            chunk = next(it, _END)
+        if chunk is _END:
+            return
+        yield chunk
+
+
+_END = object()
+
+
 def _repair_windowed_enabled() -> bool:
     """MINIO_TPU_REPAIR_WINDOWED gates the windowed + hedged execution of
     partial-repair plans (degraded GET and heal). "0" keeps the original
@@ -185,7 +200,9 @@ class ErasureSet:
             default_parity if default_parity is not None else default_parity_count(self.n)
         )
         self.ns = ns_lock if ns_lock is not None else NamespaceLock()
-        self._pool = obs.ContextPool(max_workers=max(4, self.n))
+        self._pool = obs.ContextPool(
+            max_workers=max(4, self.n), thread_name_prefix="drive-io"
+        )
         self._coders: dict[tuple[int, int, str], ErasureCoder] = {}
         # read-path degradation hook (MRF heal-on-read, reference cmd/mrf.go)
         self.on_degraded = None
@@ -494,16 +511,18 @@ class ErasureSet:
                 disk.create_file(TMP_VOLUME, stage, encoded.shard_files[shard_idx])
                 disk.rename_data(TMP_VOLUME, tmp_id, dfi, bucket, obj)
 
-        futs = [
-            self._pool.submit(write_one, i, disk) for i, disk in enumerate(self.disks)
-        ]
         errs: list[Exception | None] = []
-        for f in futs:
-            try:
-                f.result()
-                errs.append(None)
-            except Exception as e:  # noqa: BLE001
-                errs.append(e)
+        with obs.span(obs.TYPE_INTERNAL, "erasure.put.drives"):
+            futs = [
+                self._pool.submit(write_one, i, disk)
+                for i, disk in enumerate(self.disks)
+            ]
+            for f in futs:
+                try:
+                    f.result()
+                    errs.append(None)
+                except Exception as e:  # noqa: BLE001
+                    errs.append(e)
         try:
             reduce_quorum_errs(errs, write_q)
         except Exception:
@@ -581,12 +600,16 @@ class ErasureSet:
                 except Exception as e:  # noqa: BLE001
                     errs[i] = e
 
-        futs = [
-            self._pool.submit(drive_op, i, disk.create_file, TMP_VOLUME, stage, b"")
-            for i, disk in enumerate(self.disks)
-        ]
-        for f in futs:
-            f.result()
+        def fan_out(calls) -> None:
+            """Submit one drive op per drive and join them all: the
+            request's view of drive I/O."""
+            with obs.span(obs.TYPE_INTERNAL, "erasure.put.drives"):
+                for f in [self._pool.submit(drive_op, *c) for c in calls]:
+                    f.result()
+
+        reader = _body_waits(reader)
+        fan_out((i, disk.create_file, TMP_VOLUME, stage, b"")
+                for i, disk in enumerate(self.disks))
         renamed = False  # whether any rename_data may have landed
         stream_cap = int(os.environ.get("MINIO_TPU_STREAM_BATCH_MB", "64")) << 20
         # native C++ single-pass plane when every drive is local + healthy
@@ -634,15 +657,12 @@ class ErasureSet:
                             )
                         md5.update(batch.raw)
                         size += len(batch.raw)
-                        futs = []
-                        for i, disk in enumerate(self.disks):
-                            shard_idx = fi.erasure.distribution[i] - 1
-                            futs.append(self._pool.submit(
-                                drive_op, i, disk.append_file, TMP_VOLUME, stage,
-                                batch.shard_vecs[shard_idx],
-                            ))
-                        for f in futs:
-                            f.result()
+                        dist = fi.erasure.distribution
+                        fan_out(
+                            (i, disk.append_file, TMP_VOLUME, stage,
+                             batch.shard_vecs[dist[i] - 1])
+                            for i, disk in enumerate(self.disks)
+                        )
                         batch.release()
                         batch = None
                         if sum(e is None for e in errs) < write_q:
@@ -685,12 +705,7 @@ class ErasureSet:
                     f"write lock on {bucket}/{obj} lost before commit; aborting"
                 )
             renamed = True
-            futs = [
-                self._pool.submit(drive_op, i, commit_one, i, disk)
-                for i, disk in enumerate(self.disks)
-            ]
-            for f in futs:
-                f.result()
+            fan_out((i, commit_one, i, disk) for i, disk in enumerate(self.disks))
             reduce_quorum_errs(errs, write_q)
         except Exception:
             for disk, err in zip(self.disks, errs):

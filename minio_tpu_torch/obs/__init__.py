@@ -6,8 +6,9 @@ trace context (the generated ``x-amz-request-id``) rides a contextvar
 from ``app.py:_entry`` through QoS admission, erasure object ops, the
 TPU batch dispatcher, per-disk storage calls, and the background
 heal/scanner planes. Every layer publishes typed records through the
-server's ``TracePubSub``; with no subscribers nothing allocates
-(``span()`` returns a shared no-op singleton).
+server's ``TracePubSub``, whose ``SpanRing`` (``MINIO_TPU_TRACE_RING``)
+also keeps the newest closed spans in memory without a subscriber; with
+neither nothing allocates (``span()`` returns a shared no-op singleton).
 
 Spans are opened ONLY via the context-manager API::
 
@@ -34,16 +35,22 @@ from .trace import (  # noqa: F401
     TYPE_STORAGE,
     TYPE_TPU,
     Span,
+    SpanRing,
     active,
     bind_context,
+    current_context,
     current_request_id,
     new_request_id,
+    next_span_id,
     publish,
     publisher,
+    recording,
     request_context,
+    ring,
     set_publisher,
     set_request,
     span,
+    take_queue_ns,
 )
 from .filters import TraceFilter, parse_duration  # noqa: F401
 from .pool import ContextPool  # noqa: F401

@@ -43,12 +43,7 @@ import numpy as np
 from .. import obs
 from ..fault import registry as fault_registry
 from ..ops.bitrot_torch import to_numpy
-from ..qos.context import (
-    PRI_BACKGROUND,
-    PRI_FOREGROUND,
-    current_priority,
-    in_prefetch,
-)
+from ..qos.context import PRI_BACKGROUND, PRI_FOREGROUND, current_priority
 
 # backend degradation ladder (fault/ tpu boundary): fused CUDA kernel
 # (K1) -> bit-plane torch product + chain kernel (K2) -> pure-numpy CPU.
@@ -149,8 +144,10 @@ class DeviceDispatcher:
         # lazy per-family numpy codecs: the rung only pays when reached
         self._np_codec: dict[str, object] = {}
         self._cv = threading.Condition()
-        # lanes hold (blocks, fut, priority, t_enqueue); unconsumed items
-        # stay at the head, so no separate carry slot is needed
+        # lanes hold (blocks, fut, priority, t_enqueue, trace_ctx, _, codec)
+        # (slot 5 unused: the reference's tests enqueue items of this
+        # layout by hand); unconsumed items stay at the head, so no
+        # separate carry slot is needed
         self._fg: deque = deque()
         self._bg: deque = deque()
         # every key pre-seeded: observers (aggregate_stats, metrics) read
@@ -160,9 +157,6 @@ class DeviceDispatcher:
             "dispatches": 0, "blocks": 0, "max_batch": 0,
             "fg_blocks": 0, "bg_blocks": 0, "bg_forced": 0,
             "bg_batch_max": 0, "fg_deferred_behind_bg": 0,
-            # prefetch lane: cache read-ahead blocks riding the bg lane
-            # (cache/prefetch.py marks them via qos.prefetch_context)
-            "prefetch_blocks": 0,
             "fused": 0, "fused_failures": 0,
             # degradation ladder (metrics-v3 /api/fault): current rung,
             # device-fault streak witnesses, demote/promote transitions.
@@ -223,12 +217,12 @@ class DeviceDispatcher:
         if codec is None:
             codec = self.codec
         fut: Future = Future()
-        # request id captured at submit time (contextvar — costs one read
-        # only while someone is tracing) so the batch record can name the
-        # requests it served
-        req_id = obs.current_request_id() if obs.active() else ""
-        item = (blocks, fut, priority, _monotonic(), req_id,
-                priority == PRI_BACKGROUND and in_prefetch(), codec)
+        # trace context (request id, submitter's span) captured at submit
+        # time (contextvar — one read only while spans are kept) so the
+        # batch record can name the requests it served and the ring's
+        # dispatch.queue spans join each request's tree
+        trace_ctx = obs.current_context() if obs.recording() else None
+        item = (blocks, fut, priority, _monotonic(), trace_ctx, None, codec)
         with self._cv:
             (self._bg if priority == PRI_BACKGROUND else self._fg).append(item)
             self._cv.notify()
@@ -336,12 +330,15 @@ class DeviceDispatcher:
             b <<= 1
         return b
 
-    def _fused_cm(self, all_blocks: np.ndarray):
+    def _fused_cm(self, all_blocks: np.ndarray, marks: list | None = None):
         """Fused encode+hash kernel dispatch when shapes allow (ops/
         fused_cuda.py, K1). Returns None for the bit-plane product + chain
         kernel (unsupported shape, MINIO_TPU_FUSED_CM=0, or an injected
         ``kernel-fail``, which backs off and re-probes). A real kernel
-        error propagates: no other rung hides a broken kernel."""
+        error propagates: no other rung hides a broken kernel.
+
+        ``marks``: where the kernel ran, gets the monotonic ns at the
+        copy in, its end, the launch's return and the copies out's end."""
         if not self._fused_enabled:
             return None
         if self._fused_cooldown > 0:
@@ -363,8 +360,13 @@ class DeviceDispatcher:
             with self._cv:
                 self.stats["fused_failures"] += 1
             return None
-        parity, digests = fp.fused_encode_hash(self.codec.as_tensor(all_blocks), d, p)
+        _mark(marks)
+        data = self.codec.as_tensor(all_blocks)
+        _mark(marks)
+        parity, digests = fp.fused_encode_hash(data, d, p)
+        _mark(marks)
         parity, digests = parity.cpu().numpy(), digests.cpu().numpy()
+        _mark(marks)
         self._fused_backoff = 8  # healthy again: reset the backoff
         with self._cv:
             self.stats["fused"] += 1
@@ -471,6 +473,11 @@ class DeviceDispatcher:
         from ..erasure import bufpool
 
         t_start = _monotonic()
+        # the span ring's marks (ns): start, assembled, the fused route's
+        # device phases (``_fused_cm``), the device phase's end
+        ring = obs.ring()
+        marks = [time.monotonic_ns()] if ring is not None else None
+        dev_marks: list | None = [] if ring is not None else None
         arena_lease = None
         try:
             codec = batch[0][6]
@@ -533,6 +540,7 @@ class DeviceDispatcher:
             with self._cv:
                 self.stats["pad_blocks"] += bucket - k
                 _hist_add(self.stats["bucket_hist"], BUCKET_BLOCK_BUCKETS, bucket)
+            _mark(marks)
             level = self.stats["backend_level"]
             if level == LEVEL_NUMPY:
                 # degraded: traffic serves on CPU; every probe_after
@@ -562,7 +570,9 @@ class DeviceDispatcher:
                 t_dev = _monotonic()
                 try:
                     self._tpu_fault_hook()
-                    fused = self._fused_cm(all_blocks) if fusable else None
+                    fused = (
+                        self._fused_cm(all_blocks, dev_marks) if fusable else None
+                    )
                     was_fused = fused is not None
                     if fused is None:
                         # don't pay fused kernel padding (16) on the bit-plane
@@ -609,6 +619,7 @@ class DeviceDispatcher:
                 shards, digests = self._encode_numpy(all_blocks[:k], family)
                 with self._cv:
                     self.stats["numpy_blocks"] += k
+            _mark(marks)
             from ..erasure.coder import family_stats_add
 
             family_stats_add(family, "encode_blocks", k)
@@ -627,8 +638,6 @@ class DeviceDispatcher:
                     kk = it[0].shape[0]
                     if it[2] == PRI_BACKGROUND:
                         self.stats["bg_blocks"] += kk
-                        if it[5]:
-                            self.stats["prefetch_blocks"] += kk
                     else:
                         self.stats["fg_blocks"] += kk
             off = 0
@@ -639,11 +648,14 @@ class DeviceDispatcher:
                     (shards[off : off + kk], digests[off : off + kk])
                 )
                 off += kk
+            if ring is not None:
+                _mark(marks)
+                _ring_batch(ring, batch, marks, dev_marks, k * d * n)
             host_s = _monotonic() - t_start - device_s
             with self._cv:
                 self.stats["host_s"] += host_s
             if obs.active():
-                req_ids = sorted({it[4] for it in batch if it[4]})
+                req_ids = sorted({it[4][0] for it in batch if it[4] and it[4][0]})
                 obs.publish({
                     "time": time.time(),
                     "type": obs.TYPE_TPU,
@@ -678,6 +690,39 @@ class DeviceDispatcher:
 
 def _monotonic() -> float:
     return time.monotonic()
+
+
+def _mark(marks: list | None) -> None:
+    if marks is not None:
+        marks.append(time.monotonic_ns())
+
+
+def _ring_batch(ring, batch: list[tuple], marks: list[int], dev: list[int],
+                nbytes: int) -> None:
+    """One served batch in the span ring: each item's ``dispatch.queue``
+    (enqueue to dispatch start, under its request and submitter's span),
+    and ``dispatch.batch`` with its phases as children: ``assemble``,
+    on the fused route ``h2d``, ``kernels`` (to the launch's return) and
+    ``d2h`` (the kernels' end and the copies out), and ``results`` (to
+    the last future set)."""
+    t0, t_asm, t_dev, t_end = marks
+    reqs = {it[4][0] for it in batch if it[4]}
+    req = reqs.pop() if len(reqs) == 1 else ""
+    for it in batch:
+        ctx = it[4] or ("", 0)
+        ring.add("dispatch.queue", "", ctx[0], obs.next_span_id(), ctx[1],
+                 int(it[3] * 1e9), t0, it[0].nbytes)
+    bid = obs.next_span_id()
+    ring.add("dispatch.batch", "", req, bid, 0, t0, t_end, nbytes)
+    phases = [("dispatch.assemble", t0, t_asm)]
+    if len(dev) == 4:
+        phases += [("dispatch.h2d", dev[0], dev[1]),
+                   ("dispatch.kernels", dev[1], dev[2]),
+                   ("dispatch.d2h", dev[2], dev[3])]
+        t_dev = dev[3]
+    phases.append(("dispatch.results", t_dev, t_end))
+    for name, a, b in phases:
+        ring.add(name, "", req, obs.next_span_id(), bid, a, b)
 
 
 _dispatchers: dict[tuple[int, int, int], DeviceDispatcher] = {}

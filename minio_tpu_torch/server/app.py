@@ -44,7 +44,7 @@ class S3Server(
         import time as _time
 
         from ..crypto.sse import KMS
-        from .metrics import Metrics, TracePubSub
+        from .metrics import Metrics, TracePubSub, span_ring
 
         from concurrent.futures import ThreadPoolExecutor as _TPE
 
@@ -78,7 +78,7 @@ class S3Server(
         self.region = region
         self.started_at = _time.time()
         self.metrics = Metrics()
-        self.trace = TracePubSub()
+        self.trace = TracePubSub(ring=span_ring())
         # worker-pool identity (server/worker.py): single-process serving
         # is worker 0 of 1 with no siblings; main() overwrites these when
         # the process is part of an SO_REUSEPORT pool. worker_peers are
@@ -437,7 +437,12 @@ class S3Server(
         # set at prepare time so streamed bodies get it too)
         req_id = obs.new_request_id()
         request["_reqid"] = req_id
-        obs_token = obs.set_request(req_id)
+        # the request's own span in the ring (`s3.request`): every span
+        # below names it as parent
+        ring = self.trace.ring
+        sid = obs.next_span_id() if ring is not None else 0
+        t0_ns = _time.monotonic_ns()
+        obs_token = obs.set_request(req_id, sid)
         resp: web.StreamResponse | None = None
         qos_class: str | None = None
         self.metrics.inflight += 1  # single-threaded event loop: no race
@@ -498,11 +503,16 @@ class S3Server(
                 ttfb=request.get("_ttfb"),
             )
             self.qos.last_minute.add(api, dur, ttfb=request.get("_ttfb"))
+            if ring is not None:
+                ring.add("s3.request", api, req_id, sid, 0, t0_ns,
+                         _time.monotonic_ns(), rx + tx, 0, status)
             if self.trace.active:
-                self.trace.publish(
-                    trace_record(request, status, dur, rx, tx,
-                                 req_id=req_id, api=api)
-                )
+                rec = trace_record(request, status, dur, rx, tx,
+                                   req_id=req_id, api=api)
+                if sid:
+                    # the spans below name it as their parent
+                    rec["spanId"] = sid
+                self.trace.publish(rec)
             audit = getattr(self, "audit", None)
             if audit is not None and audit.enabled:
                 from .audit import audit_record

@@ -217,12 +217,17 @@ class TracePubSub:
     """Fan-out of request trace records; zero-cost with no subscribers
     (the reference checks NumSubscribers before building the record).
     Subscriber filters run at publish time so filtered-out records never
-    consume queue space; per-subscriber drops are counted, not silent."""
+    consume queue space; per-subscriber drops are counted, not silent.
 
-    def __init__(self):
+    ``ring``: an optional ``obs.SpanRing`` that keeps the newest closed
+    spans in memory whether or not anyone subscribes (the server's is
+    ``span_ring()``); a bare pubsub has none."""
+
+    def __init__(self, ring=None):
         self._mu = threading.Lock()
         self._subs: list[TraceSub] = []
         self.dropped_total = 0
+        self.ring = ring
 
     @property
     def active(self) -> bool:
@@ -264,6 +269,18 @@ class TracePubSub:
                  "queued": s.q.qsize()}
                 for i, s in enumerate(self._subs)
             ]
+
+
+def span_ring():
+    """The server's span ring: ``MINIO_TPU_TRACE_RING`` spans (default
+    262,144); 0 turns it off (None)."""
+    from ..obs import SpanRing
+
+    try:
+        cap = int(os.environ.get("MINIO_TPU_TRACE_RING", "262144") or 0)
+    except ValueError:
+        cap = 262144
+    return SpanRing(cap) if cap > 0 else None
 
 
 def trace_record(

@@ -243,11 +243,14 @@ class HealthCheckedDisk(StorageAPI):
         if not self._enter():
             raise errors.DiskNotFound(f"{self.endpoint} (circuit open)")
         # every storage op is a `storage` trace span (the reference traces
-        # at its xlStorageDiskIDCheck wrapper too); obs.span is the shared
-        # no-op singleton unless someone is streaming traces. Op-latency
-        # accounting rides the breaker's existing critical section — this
-        # is the per-shard hot path, one lock acquisition per call.
-        with obs.span(obs.TYPE_STORAGE, name, drive=self.endpoint):
+        # at its xlStorageDiskIDCheck wrapper too); the shared no-op
+        # singleton unless spans are kept (a subscriber or the server's
+        # span ring), with how long the op's pool task waited for a
+        # worker. Op-latency accounting rides the breaker's existing
+        # critical section — this is the per-shard hot path, one lock
+        # acquisition per call.
+        with obs.span(obs.TYPE_STORAGE, name, drive=self.endpoint,
+                      queue_ns=obs.take_queue_ns()):
             t0 = time.monotonic()
             try:
                 out = getattr(self._inner, name)(*a, **kw)

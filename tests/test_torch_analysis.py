@@ -342,7 +342,7 @@ def test_knob_registry_describes_the_port():
     # every other knob keeps the reference's name and default
     same = set(KNOBS) & set(REF_KNOBS)
     assert set(REF_KNOBS) - same == {"MINIO_TPU_PALLAS"}
-    assert set(KNOBS) - same == {"MINIO_TPU_TORCH_DEVICE"}
+    assert set(KNOBS) - same == {"MINIO_TPU_TORCH_DEVICE", "MINIO_TPU_TRACE_RING"}
     assert all(KNOBS[k].default == REF_KNOBS[k].default for k in same - {"MINIO_TPU_BACKEND"})
 
 

@@ -83,6 +83,20 @@ DELIBERATE = {
         "reference reads the store on the loop there, and a cluster whose "
         "nodes all do so at once waits out the grid's timeouts (ROADMAP "
         "Queue 3; tests/test_torch_cluster.py)",
+    ("server/app.py", "S3Server.__init__"):
+        "builds its TracePubSub with the span ring (span_ring(), "
+        "MINIO_TPU_TRACE_RING): closed spans are kept in memory without a "
+        "subscriber, for the benchmark's span readers (s3bench/spans.py)",
+    ("server/app.py", "S3Server._entry"):
+        "writes the request's own s3.request span into the ring (API, "
+        "status, bytes); the request context carries its id, so every span "
+        "below names it as parent",
+    ("server/metrics.py", "TracePubSub.__init__"):
+        "takes the optional span ring that keeps closed spans without a "
+        "subscriber (a bare TracePubSub() has none)",
+    ("server/metrics.py", "span_ring"):
+        "the server's span ring from MINIO_TPU_TRACE_RING (default 262,144 "
+        "spans, 0 turns it off)",
     ("server/metrics.py", "_g_api_tpu"):
         "adds minio_tpu_kernel_launches_total{kernel=...} and "
         "minio_tpu_kernel_launch_shapes_total{kernel=...,shape=...}: the hand "
