@@ -216,11 +216,12 @@ last line, launches by shape), one ``ladder`` line and one
 dispatchers' counters, the ladder's), K2's
 device time per
 packet round, the hash
-core's SASS instructions per round (``cuobjdump``, where the toolkit has
-it), the GF core's registers and spills per instantiation (``nvcc -Xptxas
--v``; more registers than ``gf_cuda.registers`` allows, or a spill,
-fails), ``gf_conflict_ratio``, ``gf_waves``, one ``kernels`` JSON line,
-the card's name
+core's SASS instructions per round of each read path (aligned and
+generic) in K1's and K2's instantiation, split by pipe (integer ALU, FMA,
+LSU; ``cuobjdump``, where the toolkit has it), the GF core's registers
+and spills per instantiation (``nvcc -Xptxas -v``; more registers than
+``gf_cuda.registers`` allows, or a spill, fails), ``gf_conflict_ratio``,
+``gf_waves``, one ``kernels`` JSON line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Kernel
 times are medians of 7 samples of 5 back-to-back calls each. Needs one
 CUDA card; without one (or without the package beside it) it exits
@@ -304,42 +305,86 @@ def timed_once(torch, fn):
     return out, a.elapsed_time(b)
 
 
-def sass_per_round(so: str, kernel: str):
-    """Instructions per packet round of the hash core's hot loop, read from
-    ``cuobjdump -sass`` of the library ``so``: in the function whose name
-    holds ``kernel``, the smallest loop (a backward branch and its target)
-    that reads shared memory, waits on no barrier and holds 8 or more
-    32x32->64 multiplies, of which a round has 4 (2 lanes x 2). None where
-    the toolkit has no cuobjdump."""
-    import re
+# SASS opcodes by the pipe of an SM sub-partition that executes them: the
+# integer ALU and the FMA pipe's integer multiply-adds are 16 lanes wide
+# each on the H100, so each takes two cycles a warp instruction
+SASS_PIPES = {
+    "alu": ("IADD3", "LOP3", "PRMT", "SHF", "ISETP", "LEA", "SEL", "IMNMX", "IABS", "FLO",
+            "POPC", "BMSK", "PLOP3", "SGXT", "BREV"),
+    "fma": ("IMAD", "FFMA", "FMUL", "FADD", "IDP"),
+    "lsu": ("LDS", "LDG", "LD.", "STS", "STG", "ST.", "ATOM", "RED", "SHFL", "LDSM"),
+}
 
+
+def sass_op(text: str) -> str:
+    """The opcode of one SASS instruction, past any predicate."""
+    return text.split()[1] if text.startswith("@") else text.split()[0]
+
+
+def sass_pipe(text: str) -> str:
+    """The pipe of one SASS instruction (``SASS_PIPES``), "other" for the
+    rest (moves, branches, barriers)."""
+    op = sass_op(text)
+    for pipe, prefixes in SASS_PIPES.items():
+        if any(op == x or op.startswith(x + ".") or (x.endswith(".") and op.startswith(x))
+               for x in prefixes):
+            return pipe
+    return "other"
+
+
+def sass_per_round(so: str, kernel: str):
+    """Instructions per packet round of the hash core's hot loops, read
+    from ``cuobjdump -sass`` of the library ``so``, in the function whose
+    name holds ``kernel``: for each read path, the smallest loop (a
+    backward branch and its target) that reads shared memory, waits on no
+    barrier and holds 8 or more 32x32->64 products (``IMAD.WIDE.U32`` with
+    no addend, 4 a round: 2 lanes x 2). The aligned path's loop reads with
+    ``LDS.128``, the generic path's with 4-byte ``LDS``. Per round: all
+    instructions and those of each pipe (``SASS_PIPES``), beside the
+    opcodes of "other". None where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         return None
+    import collections
+    import re
+
     sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
                           timeout=120).stdout
+    loops: dict[str, tuple] = {}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split("\n", 1)[0].strip()
         if kernel not in name:
             continue
         ins = [(int(a, 16), t.strip())
                for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
-        loops = []
         for addr, text in ins:
             br = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
-            if br and int(br.group(1), 16) <= addr:
-                body = [t for a, t in ins if int(br.group(1), 16) <= a <= addr]
-                muls = sum(t.startswith("IMAD.WIDE.U32") for t in body)
-                ring = any(t.startswith("LDS") for t in body) and \
-                    not any(t.startswith("SYNCS") for t in body)
-                if ring and muls >= 8 and muls % 4 == 0:
-                    loops.append((len(body), muls // 4))
-        if loops:
-            n_ins, rounds = min(loops)
-            return {"kernel": name, "loop_instructions": n_ins, "rounds": rounds,
-                    "per_round": n_ins / rounds}
-    return None
+            if not br or int(br.group(1), 16) > addr:
+                continue
+            body = [t for a, t in ins if int(br.group(1), 16) <= a <= addr]
+            ops = [sass_op(t) for t in body]
+            products = sum(op == "IMAD.WIDE.U32" and t.rstrip().endswith("RZ")
+                           for op, t in zip(ops, body))
+            if any(op.startswith("SYNCS") for op in ops) or products < 8 or products % 4:
+                continue
+            if not any(op.startswith("LDS") for op in ops):
+                continue
+            path = "aligned" if any(op.startswith("LDS.128") for op in ops) else "generic"
+            if path not in loops or len(body) < len(loops[path][1]):
+                loops[path] = (name, body, products // 4)
+    if not loops:
+        return None
+    res = {}
+    for path, (name, body, rounds) in sorted(loops.items()):
+        pipes = collections.Counter(sass_pipe(t) for t in body)
+        other = collections.Counter(sass_op(t).split(".")[0] for t in body
+                                    if sass_pipe(t) == "other")
+        res[path] = {"kernel": name, "loop_instructions": len(body), "rounds": rounds,
+                     "per_round": len(body) / rounds,
+                     **{f"{p}_per_round": pipes[p] / rounds for p in (*SASS_PIPES, "other")},
+                     "other_ops": dict(other)}
+    return res
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -350,15 +395,16 @@ def max_abs_err(torch, got, want) -> int:
 
 # the shapes the main path gives each kernel, for ``--kernels`` runs
 # (no object phase to read them from): the dispatcher's cap of 4,096
-# shards is 256 blocks at 8+8; degraded GETs decode 8-block windows padded
-# to 16 with all 8 data shards rebuilt from parity; EC 12+4 PUTs hash
+# shards is 256 blocks at 8+8, and one 1 MiB PUT at a time is one block
+# padded to 16 (the benchmark's cell); degraded GETs decode 8-block
+# windows padded to 16 with all 8 data shards rebuilt from parity; EC 12+4 PUTs hash
 # 64 and 256 blocks of 16 shards of 87,382 bytes (and the graft entry's
 # dry run one 8+8 block of 16 shards of 128 KiB a rank, its one-step
 # check 2 blocks of 6 shards of 1 KiB); cauchy PUTs apply the
 # [2p, 2d] composite to 256 blocks' a/b halves (K3 keys: B, 2d, 2p, h,
 # sub-chunks) and hash their 2 x 16 sub-chunks per block
 DEFAULT_SHAPES = {
-    "fused_encode_hash": [("encode", 256, 8, 8, 131072)],
+    "fused_encode_hash": [("encode", 256, 8, 8, 131072), ("encode", 16, 8, 8, 131072)],
     "fused_decode_hash": [("decode", 16, 8, 8, 131072, tuple(range(8, 16)), tuple(range(8)))],
     "hh_chain": [(1024, -(-MIB // 12)), (4096, -(-MIB // 12)), (8192, 65536),
                  (8192, -(-MIB // 12) // 2), (16, MIB // 8), (12, 1024)],

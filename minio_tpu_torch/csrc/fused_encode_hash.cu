@@ -67,20 +67,22 @@ extern "C" int fused_gf_apply(const void* data, int64_t B, int d, int p, int64_t
 }
 
 // As fused_gf_apply (its plan: gf_threads, gf_grid), then digests:
-// [B, d+p, 32] u8 of every shard. msgs_per_cta .. smem_bytes: the hash
-// core's launch plan for B*(d+p) messages of n bytes
+// [B, d+p, 32] u8 of every shard. aligned: non-zero when every shard's
+// start is 16-byte aligned (ops/bitrot_cuda.aligned). msgs_per_cta ..
+// smem_bytes: the hash core's launch plan for B*(d+p) messages of n bytes
 // (ops/bitrot_cuda.plan). Returns the first non-zero cudaError_t of the
 // two launches.
 extern "C" int fused_encode_hash(const void* data, int64_t B, int d, int p, int64_t n,
                                  const void* tables, uint64_t k0, uint64_t k1, uint64_t k2,
                                  uint64_t k3, void* out, void* digests, int64_t gf_threads,
-                                 int64_t gf_grid, int64_t msgs_per_cta, int64_t stages,
-                                 int64_t stage_bytes, int64_t slot_bytes, int64_t smem_bytes,
-                                 void* stream) {
+                                 int64_t gf_grid, int64_t aligned, int64_t msgs_per_cta,
+                                 int64_t stages, int64_t stage_bytes, int64_t slot_bytes,
+                                 int64_t smem_bytes, void* stream) {
   if (B <= 0) return 0;
   const int e = fused_gf_apply(data, B, d, p, n, tables, out, gf_threads, gf_grid, stream);
   if (e != 0) return e;
   const FusedRows rows = {(const uint8_t*)data, (const uint8_t*)out, d, p, n};
-  return hh_ring_launch(rows, B * (d + p), n, k0, k1, k2, k3, (uint8_t*)digests, msgs_per_cta,
-                        stages, stage_bytes, slot_bytes, smem_bytes, (cudaStream_t)stream);
+  return hh_ring_launch(rows, B * (d + p), n, k0, k1, k2, k3, (uint8_t*)digests, aligned,
+                        msgs_per_cta, stages, stage_bytes, slot_bytes, smem_bytes,
+                        (cudaStream_t)stream);
 }

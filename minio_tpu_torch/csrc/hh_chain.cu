@@ -13,8 +13,9 @@
 // packet rounds per message. The core's design answers both (see
 // hh_core.cuh): two threads per message halve each round's dependent
 // work, and packets arrive through a TMA-filled shared-memory ring
-// several stages ahead, so rounds no longer wait on device memory and
-// unaligned rows cost what aligned ones do.
+// several stages ahead, so rounds no longer wait on device memory. Rows
+// that all start 16-byte aligned take the core's 16-byte read path;
+// others (as 12+4 shards of 87,382 bytes) its generic reads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -27,13 +28,15 @@ struct ContigRows {
 };
 
 // msgs: rows x n bytes, contiguous (any start address); out: rows x 32.
-// msgs_per_cta .. smem_bytes: the launch plan (ops/bitrot_cuda.plan).
+// aligned: non-zero when every row start is 16-byte aligned
+// (ops/bitrot_cuda.aligned). msgs_per_cta .. smem_bytes: the launch plan
+// (ops/bitrot_cuda.plan).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int hh_chain(const void* msgs, int64_t rows, int64_t n, uint64_t k0, uint64_t k1,
-                        uint64_t k2, uint64_t k3, void* out, int64_t msgs_per_cta,
-                        int64_t stages, int64_t stage_bytes, int64_t slot_bytes,
-                        int64_t smem_bytes, void* stream) {
+                        uint64_t k2, uint64_t k3, void* out, int64_t aligned,
+                        int64_t msgs_per_cta, int64_t stages, int64_t stage_bytes,
+                        int64_t slot_bytes, int64_t smem_bytes, void* stream) {
   const ContigRows r = {(const uint8_t*)msgs, n};
-  return hh_ring_launch(r, rows, n, k0, k1, k2, k3, (uint8_t*)out, msgs_per_cta, stages,
-                        stage_bytes, slot_bytes, smem_bytes, (cudaStream_t)stream);
+  return hh_ring_launch(r, rows, n, k0, k1, k2, k3, (uint8_t*)out, aligned, msgs_per_cta,
+                        stages, stage_bytes, slot_bytes, smem_bytes, (cudaStream_t)stream);
 }

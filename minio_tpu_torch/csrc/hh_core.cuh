@@ -8,10 +8,14 @@
 // dependent arithmetic, whatever the batch. One thread per message with
 // 8-byte loads from device memory in each round waited out a full memory
 // latency every round (0.6-1.4 us per round on the H100), far above the
-// round's own arithmetic. That arithmetic is some 50 integer instructions
-// on a lane pair (PERF.md counts them in the SASS), which one warp issues
-// at about two cycles each: the per-chain floor is issue, not the
-// round's dependent path.
+// round's own arithmetic. Below a few thousand messages a chain has an SM
+// sub-partition to itself, and there the round's time is its instruction
+// count: on the H100 a lone warp issues about one instruction every 2.3
+// cycles, to the integer ALU and the FMA pipe alike (PERF.md: ns a round
+// track the SASS count of the hot loop at ~1.17 ns an instruction; adds
+// moved onto the FMA pipe as IMADs only added instructions, since ptxas
+// splits a wide multiply-add back into IADD3s). So the design cuts
+// instructions from the round and keeps its reads off the critical path.
 //
 // Design.
 //  - Two threads per message, one per lane pair (highwayhash.cuh): each
@@ -29,7 +33,9 @@
 //    wait on before refilling the stage. No round waits on device memory
 //    once the ring is primed. There is no producer warp: CTAs of one warp
 //    spread evenly over an SM's four schedulers, and a row's address is
-//    computed once, not per copy.
+//    computed once, not per copy. A window's barriers and copies cost the
+//    chain ~0.3 us, so the plan takes the largest window that keeps every
+//    CTA resident.
 //  - All of a CTA's messages have length n, so one stage holds the same
 //    byte window of each message, in a slot of `slot_bytes` each.
 //  - Any row start: a window's copy takes the 32-byte sectors that hold
@@ -39,13 +45,21 @@
 //    alignment (copies starting mid-sector, as 16-byte granular ones of an
 //    odd-length row do, ran markedly below the memory rate of
 //    sector-aligned ones). The window's first byte sits at r = (row start
-//    mod 32) in its slot. A thread reads the five 4-byte words that hold
-//    its 16 bytes of a packet (from 32p + 16q + (r & 28) in the slot) and
-//    funnel-shifts them by r & 3 bytes. Aligned rows run the same
-//    instructions, so aligned and unaligned rows cost the same per round.
-//    A warp's 4-byte reads meet bank conflicts (up to 4-way where its
-//    rows share r), which cost less than the selects that conflict-free
-//    16-byte reads of an unaligned window need.
+//    mod 32) in its slot.
+//  - Two read paths, chosen per launch on the host from the row starts
+//    (ops/bitrot_cuda.aligned; HHPlan::aligned). Aligned, where every row
+//    start is 16-byte aligned (K1 always; r is 0 or 16): a thread's 16
+//    bytes of a packet, at 32p + 16q + r in the slot, are one LDS.128,
+//    with no bank conflict at the plan's slot (32 mod 128 bytes: a
+//    quarter-warp's four messages cover the 32 banks). Generic: the five
+//    4-byte words that hold them (from 32p + 16q + (r & 28)),
+//    funnel-shifted by r & 3 bytes; 4-byte reads meet bank conflicts (up
+//    to 4-way where rows share r), which cost less than the selects that
+//    conflict-free 16-byte reads of an unaligned window need. Both issue
+//    a packet's reads a round ahead of its use (~8% of an aligned round).
+//    Measured (PERF.md, the H100): 39.6 SASS instructions a round aligned
+//    (32.1 integer ALU, 6.1 FMA, 1 LSU), 47.6 generic (36.1, 6.1, 5),
+//    against 48.25 for every round before the aligned path.
 //  - The remainder packet (n mod 32 bytes, read from device memory once)
 //    and the 10 finalization rounds end each message. n < 32 runs only
 //    those; n = 0 only finalization.
@@ -67,6 +81,7 @@ struct HHPlan {
   int stages;       // ring depth
   int stage_bytes;  // a message's bytes per stage: a multiple of 32
   int slot_bytes;   // a message's slot in a stage: >= stage_bytes + 32, multiple of 16
+  int aligned;      // every row start 16-byte aligned: the 16-byte read path
 };
 
 static __device__ __forceinline__ int64_t hh_min(int64_t a, int64_t b) { return a < b ? a : b; }
@@ -108,19 +123,59 @@ static __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, u
       : "memory");
 }
 
-// The 16 bytes that start sh/8 bytes (0-3) past the 4-byte aligned `w`,
-// as two little-endian 8-byte words: five 4-byte loads from shared memory
-// and four funnel shifts. sh is fixed for a thread, so every round runs
-// the same instructions whatever the row's alignment.
-static __device__ __forceinline__ void hh_load16(const uint32_t* w, unsigned sh, uint64_t a[2]) {
-  uint32_t x[5];
+// A thread's 16 bytes of a packet, read from shared memory at `w` (its
+// first 4-byte word of the packet): aligned (w 16-byte aligned), one
+// 16-byte load; generic, the five 4-byte words that hold them, shifted
+// right by sh/8 bytes (0-3) when the packet is hashed.
+template <bool Aligned>
+struct HHHalf {
+  uint32_t x[Aligned ? 4 : 5];
+
+  __device__ __forceinline__ void load(const uint32_t* w) {
+    if constexpr (Aligned) {
+      const uint4 v = *reinterpret_cast<const uint4*>(w);
+      x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+    } else {
 #pragma unroll
-  for (int i = 0; i < 5; ++i) x[i] = w[i];
-  uint32_t o[4];
+      for (int i = 0; i < 5; ++i) x[i] = w[i];
+    }
+  }
+
+  // the two little-endian 8-byte packet words
+  __device__ __forceinline__ void words(unsigned sh, uint64_t a[2]) const {
+    uint32_t o[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) o[i] = __funnelshift_r(x[i], x[i + 1], sh);
-  a[0] = ((uint64_t)o[1] << 32) | o[0];
-  a[1] = ((uint64_t)o[3] << 32) | o[2];
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (Aligned)
+        o[i] = x[i];
+      else
+        o[i] = __funnelshift_r(x[i], x[i + 1], sh);
+    }
+    a[0] = ((uint64_t)o[1] << 32) | o[0];
+    a[1] = ((uint64_t)o[3] << 32) | o[2];
+  }
+};
+
+// The packet rounds of one window: `packets` (>= 1) packets at 32-byte
+// steps from `w`, the thread's first 4-byte word of the window in its slot
+// (16q + (r & 28) past the slot's start). Each packet's read is issued a
+// round ahead of its use, so no round waits on shared memory.
+template <bool Aligned>
+static __device__ __forceinline__ void hh_window(HHPair& st, const uint32_t* w, int packets,
+                                                 unsigned r) {
+  HHHalf<Aligned> cur;
+  cur.load(w);
+  uint64_t a[2];
+#pragma unroll 8
+  for (int p = 1; p < packets; ++p) {
+    HHHalf<Aligned> next;
+    next.load(w + 8 * p);
+    cur.words(8 * (r & 3), a);
+    hh_update(st, a);
+    cur = next;
+  }
+  cur.words(8 * (r & 3), a);
+  hh_update(st, a);
 }
 
 // Rows: a functor, message index -> address of its first byte.
@@ -202,12 +257,10 @@ __global__ void hh_ring_kernel(Rows rows, int64_t count, int64_t n, uint64_t k0,
     const uint32_t* base = reinterpret_cast<const uint32_t*>(
         ring + (size_t)(s * M + m) * slot + 16 * q + (r & 28));
     const int packets = (int)(hh_min(W, whole - (int64_t)k * W) >> 5);
-#pragma unroll 4
-    for (int p = 0; p < packets; ++p) {
-      uint64_t a[2];
-      hh_load16(base + 8 * p, 8 * (r & 3), a);
-      hh_update(st, a);
-    }
+    if (plan.aligned)
+      hh_window<true>(st, base, packets, r);
+    else
+      hh_window<false>(st, base, packets, r);
     mbar_arrive(empty0 + 8u * s);
     if (++s == S) s = 0, ph ^= 1;
   }
@@ -220,8 +273,8 @@ __global__ void hh_ring_kernel(Rows rows, int64_t count, int64_t n, uint64_t k0,
 // Returns the cudaError_t (0 on success); count <= 0 launches nothing.
 template <class Rows>
 static int hh_ring_launch(Rows rows, int64_t count, int64_t n, uint64_t k0, uint64_t k1,
-                          uint64_t k2, uint64_t k3, uint8_t* digests, int64_t msgs,
-                          int64_t stages, int64_t stage_bytes, int64_t slot_bytes,
+                          uint64_t k2, uint64_t k3, uint8_t* digests, int64_t aligned,
+                          int64_t msgs, int64_t stages, int64_t stage_bytes, int64_t slot_bytes,
                           int64_t smem_bytes, cudaStream_t stream) {
   if (count <= 0) return 0;
   if (n < 0 || msgs < 1 || msgs > HH_MAX_MSGS || stages < 1 || stage_bytes < 32 ||
@@ -232,7 +285,8 @@ static int hh_ring_launch(Rows rows, int64_t count, int64_t n, uint64_t k0, uint
   const cudaError_t e = cudaFuncSetAttribute(
       hh_ring_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  const HHPlan plan = {(int)msgs, (int)stages, (int)stage_bytes, (int)slot_bytes};
+  const HHPlan plan = {(int)msgs, (int)stages, (int)stage_bytes, (int)slot_bytes,
+                       aligned != 0};
   const unsigned grid = (unsigned)((count + msgs - 1) / msgs);
   hh_ring_kernel<Rows><<<grid, (unsigned)(2 * msgs), (size_t)smem_bytes, stream>>>(
       rows, count, n, k0, k1, k2, k3, digests, plan);

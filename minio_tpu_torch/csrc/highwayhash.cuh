@@ -7,6 +7,12 @@
 // halves, CUDA does not need to. The multiply is the 32x32 -> 64 product
 // (mul.wide.u32), the zipper merge six byte permutes.
 //
+// A round is some 38 instructions on a lane pair: 12 byte permutes, 8
+// xors and the 64-bit adds on the integer ALU (ptxas moves a few carries
+// onto the FMA pipe as IMAD.X), 4 products (IMAD.WIDE.U32) on the FMA
+// pipe. In a chain alone on its SM sub-partition the count, not any one
+// pipe, sets the round's time (hh_core.cuh).
+//
 // The state is split by lane pair. In a whole-packet round (hh_update)
 // lanes 0-1 and lanes 2-3 never exchange a value: each lane's update is
 // its own, and each zipper merge stays inside its pair. So one thread

@@ -37,9 +37,9 @@ _U64 = ctypes.c_uint64
 # truncates them to 32-bit ints
 SIGNATURES = {
     "hh_chain": {
-        # (msgs, rows, n, k0..k3, out, plan: msgs_per_cta, stages,
-        #  stage_bytes, slot_bytes, smem_bytes, stream)
-        "hh_chain": [_P, _I64, _I64, _U64, _U64, _U64, _U64, _P, *[_I64] * 5, _P],
+        # (msgs, rows, n, k0..k3, out, aligned, plan: msgs_per_cta,
+        #  stages, stage_bytes, slot_bytes, smem_bytes, stream)
+        "hh_chain": [_P, _I64, _I64, _U64, _U64, _U64, _U64, _P, *[_I64] * 6, _P],
     },
     "gf_apply": {
         # (in, in_bs, out, out_bs, B, k, r, n, tables, offs, GF plan:
@@ -48,10 +48,10 @@ SIGNATURES = {
     },
     "fused_encode_hash": {
         # (data, B, d, p, n, tables, k0..k3, out, digests, GF plan (2),
-        #  hash plan: msgs_per_cta, stages, stage_bytes, slot_bytes,
-        #  smem_bytes, stream)
+        #  aligned, hash plan: msgs_per_cta, stages, stage_bytes,
+        #  slot_bytes, smem_bytes, stream)
         "fused_encode_hash": [_P, _I64, _I, _I, _I64, _P,
-                              _U64, _U64, _U64, _U64, _P, _P, *[_I64] * 7, _P],
+                              _U64, _U64, _U64, _U64, _P, _P, *[_I64] * 8, _P],
         # (data, B, d, p, n, tables, out, GF plan (2), stream): the GF launch alone
         "fused_gf_apply": [_P, _I64, _I, _I, _I64, _P, _P, _I64, _I64, _P],
     },

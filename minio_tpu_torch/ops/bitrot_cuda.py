@@ -6,7 +6,10 @@ Counterpart of the JAX package's ``ops/bitrot_pallas.py``
 per message (one per lane pair), packets fed through a TMA-filled ring
 in shared memory, tail packet and finalization included, so any length
 n >= 0, any number of messages and any row start work. ``plan`` sizes
-the core's launch for K1 and K2 alike. For a CPU tensor the wrapper runs
+the core's launch for K1 and K2 alike, and ``aligned`` picks its read
+path from the launch's row starts: one 16-byte shared-memory read a
+packet half where every row start is 16-byte aligned, else five 4-byte
+reads and four funnel shifts. For a CPU tensor the wrapper runs
 the plain PyTorch version (``bitrot_torch.hash256_blocks_plain``); for a
 CUDA tensor it launches the kernel or raises.
 """
@@ -23,15 +26,19 @@ from .bitrot_torch import hash256_blocks_plain
 from .card import BLOCK_SMEM_MAX, BLOCK_SMEM_RESERVED, SM_SMEM, SMS
 from .highwayhash import MINIO_KEY
 
-__all__ = ["hash256_blocks", "plan", "Plan", "launches", "launch_shapes"]
+__all__ = ["hash256_blocks", "plan", "Plan", "aligned", "count_core_launch", "launches",
+           "launch_shapes", "core_launches"]
 
 # kernel launches made by hash256_blocks (CPU calls do not count), and
 # the (B, n) shapes they were made at -> launches
 launches = 0
 launch_shapes: collections.Counter = collections.Counter()
+# hash-core launches of K1 and K2 by (wrapper kernel, read path): path
+# "aligned" or "generic" (``aligned``)
+core_launches: collections.Counter = collections.Counter()
 
 STAGES = 3                 # ring depth: 2 windows in flight ahead of the chain
-WINDOWS = (4096, 2048, 1024, 512)  # a message's bytes per stage, largest first
+WINDOWS = (8192, 4096, 2048, 1024, 512)  # a message's bytes per stage, largest first
 
 
 class Plan(NamedTuple):
@@ -60,10 +67,12 @@ def plan(rows: int, n: int) -> Plan:
     where rows allow; beyond that 16 a CTA (one full warp). The window
     (a message's bytes per stage) is the largest of ``WINDOWS`` with which
     every CTA is resident at once, capped at the whole-packet prefix:
-    each window costs its copies' issue (tens of cycles per message), so
-    larger windows cost less per round, until shared memory would push
-    CTAs into a second wave. A slot holds the window plus the 32 bytes an
-    unaligned row's copy adds (copies take whole 32-byte sectors)."""
+    each window costs its copies' issue and its barriers (~0.3 us of the
+    chain on an H100), so larger windows cost less per round, until
+    shared memory would push CTAs into a second wave (8,192 bytes fit
+    only at 8 messages a CTA, one CTA an SM). A slot holds the window
+    plus the 32 bytes an unaligned row's copy adds (copies take whole
+    32-byte sectors)."""
     whole = n - n % 32
     msgs = 8 if rows <= 16 * SMS else 16
     ctas = -(-rows // msgs)
@@ -75,6 +84,19 @@ def plan(rows: int, n: int) -> Plan:
         if smem <= BLOCK_SMEM_MAX and ctas <= SMS * per_sm:
             break
     return Plan(msgs, STAGES, w, slot, smem, ctas)
+
+
+def aligned(*runs: tuple[int, int, int]) -> bool:
+    """Whether every row start of a hash-core launch is 16-byte aligned,
+    which gives it the 16-byte read path. ``runs``: (address, rows, n),
+    each ``rows`` rows of n bytes back to back from ``address``."""
+    return all(rows <= 0 or (addr % 16 == 0 and (rows == 1 or n % 16 == 0))
+               for addr, rows, n in runs)
+
+
+def count_core_launch(kernel: str, is_aligned: bool) -> None:
+    """Count one hash-core launch of wrapper ``kernel`` by its read path."""
+    core_launches[(kernel, "aligned" if is_aligned else "generic")] += 1
 
 
 def hash256_blocks(blocks: torch.Tensor, key: bytes = MINIO_KEY) -> torch.Tensor:
@@ -92,11 +114,13 @@ def hash256_blocks(blocks: torch.Tensor, key: bytes = MINIO_KEY) -> torch.Tensor
     out = torch.empty((b, 32), dtype=torch.uint8, device=blocks.device)
     if b == 0:
         return out
+    rows_aligned = aligned((blocks.data_ptr(), b, n))
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hh_chain(blocks.data_ptr(), b, n, *_build.key_words(key),
-                          out.data_ptr(), *plan(b, n).args(), stream)
+                          out.data_ptr(), rows_aligned, *plan(b, n).args(), stream)
     _build.check(rc, "hh_chain")
     launches += 1
     launch_shapes[(b, n)] += 1
+    count_core_launch("hh_chain", rows_aligned)
     return out

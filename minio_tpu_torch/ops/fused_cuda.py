@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from . import _build, gf, gf_cuda, rs
-from .bitrot_cuda import plan
+from .bitrot_cuda import aligned, count_core_launch, plan
 from .bitrot_torch import hash256_blocks_plain
 from .highwayhash import MINIO_KEY
 from .rs_torch import gf_apply_bits, gf_matrix_to_bitplanes
@@ -103,19 +103,22 @@ def fused_plain(data: torch.Tensor, m: np.ndarray, key: bytes = MINIO_KEY):
     return out, hash256_blocks_plain(shards, key).reshape(b, d + r, 32)
 
 
-def _launch(data: torch.Tensor, tables: torch.Tensor, r: int, key: bytes):
+def _launch(kernel: str, data: torch.Tensor, tables: torch.Tensor, r: int, key: bytes):
     b, d, n = data.shape
     lib = _build.load()["fused_encode_hash"]
     out = torch.empty((b, r, n), dtype=torch.uint8, device=data.device)
     digests = torch.empty((b, d + r, 32), dtype=torch.uint8, device=data.device)
+    rows_aligned = aligned((data.data_ptr(), b * d, n), (out.data_ptr(), b * r, n))
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_encode_hash(
             data.data_ptr(), b, d, r, n, tables.data_ptr(),
             *_build.key_words(key), out.data_ptr(), digests.data_ptr(),
-            *gf_cuda.plan(b, d, r, n).args(), *plan(b * (d + r), n).args(), stream,
+            *gf_cuda.plan(b, d, r, n).args(), rows_aligned, *plan(b * (d + r), n).args(),
+            stream,
         )
     _build.check(rc, "fused_encode_hash")
+    count_core_launch(kernel, rows_aligned)
     return out, digests
 
 
@@ -162,7 +165,7 @@ def fused_encode_hash(data: torch.Tensor, d: int, p: int, key: bytes = MINIO_KEY
     data = _check(data, d, p)
     if data.device.type == "cpu":
         return fused_plain(data, rs.get_codec(d, p).parity_matrix, key)
-    out = _launch(data, _encode_tables(d, p, str(data.device)), p, key)
+    out = _launch("fused_encode_hash", data, _encode_tables(d, p, str(data.device)), p, key)
     encode_launches += 1
     launch_shapes[("encode", data.shape[0], d, p, data.shape[2])] += 1
     return out
@@ -184,7 +187,7 @@ def fused_decode_hash(survivors: torch.Tensor, d: int, p: int, present: tuple,
     if survivors.device.type == "cpu":
         return fused_plain(survivors, decode_matrix(d, p, pres, miss), key)
     tables = _decode_tables(d, p, pres, miss, str(survivors.device))
-    out = _launch(survivors, tables, m, key)
+    out = _launch("fused_decode_hash", survivors, tables, m, key)
     decode_launches += 1
     launch_shapes[("decode", survivors.shape[0], d, p, survivors.shape[2], pres, miss)] += 1
     return out

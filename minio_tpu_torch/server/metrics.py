@@ -1018,6 +1018,12 @@ def _g_api_tpu(server) -> list[str]:
          [({"kernel": name, "shape": json.dumps(k, separators=(",", ":"))}, n)
           for name, k, n in sorted(shapes, key=repr)],
          "CUDA kernel launches by kernel and shape key")
+    # K1's and K2's hash-core launches by read path ("aligned": every row
+    # start 16-byte aligned, one 16-byte read a packet half; "generic")
+    _fmt(out, "minio_tpu_hash_core_launches_total", "counter",
+         [({"kernel": k, "path": path}, n)
+          for (k, path), n in sorted(list(bitrot_cuda.core_launches.items()))],
+         "HighwayHash core launches by kernel and read path")
     _fmt(out, "minio_tpu_fused_failures_total", "counter",
          [({}, ds.get("fused_failures", 0))])
     _fmt(out, "minio_tpu_dispatch_bg_forced_blocks_total", "counter",

@@ -8,10 +8,18 @@ can hold of it.
 - A scalar model of the core's split (two pair states, the remainder
   assembled whole and halved, finalization fed the partner pair's v0)
   against the JAX package's HighwayHash, at every remainder length.
-- A model of the ring's copy windows and the consumers' 4-byte reads
-  and shift at every row start 0-31: the chunks copied hold only
-  message bytes and fit their slot, and the bytes read back are the
-  packet halves.
+- The round in 32-bit words, as the core's SASS runs it (64-bit adds as
+  low-word sums whose carries feed the high words, the zipper as byte
+  permutes, 32x32->64 products), against the port's HighwayHash round on
+  random states.
+- A model of the ring's copy windows and the consumers' reads at every
+  row start 0-31: the chunks copied hold only message bytes and fit their
+  slot, and the bytes read back are the packet halves, through the four
+  4-byte reads and shift of the generic path and, where the row start is
+  16-byte aligned, through the aligned path's one 16-byte read.
+- The read-path choice (``bitrot_cuda.aligned``): a launch takes the
+  aligned path exactly when every row start is 16-byte aligned, for K2's
+  contiguous rows and K1's input and output rows; and its counter.
 - ``bitrot_cuda.plan`` at every main-path shape and at short and odd
   lengths: shared memory, stage bytes, grid coverage and spread.
 """
@@ -22,7 +30,8 @@ import torch
 
 from minio_tpu.ops.highwayhash import hash256_batch_numpy
 from minio_tpu_torch.ops import bitrot_cuda, bitrot_torch
-from minio_tpu_torch.ops.highwayhash import INIT0, INIT1, MINIO_KEY, _zipper_merge_add
+from minio_tpu_torch.ops.highwayhash import (
+    INIT0, INIT1, MINIO_KEY, HighwayHash256, _zipper_merge_add)
 
 M64 = (1 << 64) - 1
 M32 = 0xFFFFFFFF
@@ -168,6 +177,68 @@ def test_zipper_as_byte_permutes(seed):
     assert _zipper_merge_add(v1, v0, add1, add0) == ((add1 + z1) & M64, (add0 + z0) & M64)
 
 
+def _add64(*xs: int) -> int:
+    """A 64-bit sum of two or three words as IADD3 and IADD3.X run it: the
+    low words' sum, then the high words' sum with its carry (0-2), each
+    kept to 32 bits."""
+    lo = sum(x & M32 for x in xs)
+    hi = (sum(x >> 32 for x in xs) + (lo >> 32)) & M32
+    return (hi << 32) | (lo & M32)
+
+
+def _xor64(x: int, y: int) -> int:
+    """A 64-bit xor as two 32-bit LOP3s."""
+    return (((x >> 32) ^ (y >> 32)) << 32) | ((x ^ y) & M32)
+
+
+def _zipper_words(v1: int, v0: int) -> tuple[int, int]:
+    """hh_zipper: (z1, z0) from six byte permutes of the four 32-bit words."""
+    a_lo, a_hi, b_lo, b_hi = v0 & M32, v0 >> 32, v1 & M32, v1 >> 32
+    z0 = _byte_perm(_byte_perm(a_lo, b_hi, 0x0243), a_hi, 0x5210) | \
+        (_byte_perm(a_lo, b_hi, 0x0716) << 32)
+    z1 = _byte_perm(_byte_perm(b_lo, a_hi, 0x0243), b_hi, 0x5210) | \
+        (_byte_perm(b_lo, a_hi, 0x7061) << 32)
+    return z1, z0
+
+
+def _word_round(st, a) -> None:
+    """hh_update of highwayhash.cuh on one lane pair, in 32-bit words."""
+    v0, v1, mul0, mul1 = st
+    for i in range(2):
+        v1[i] = _add64(v1[i], mul0[i], a[i])
+        mul0[i] = _xor64(mul0[i], (v1[i] & M32) * (v0[i] >> 32))
+        v0[i] = _add64(v0[i], mul1[i])
+        mul1[i] = _xor64(mul1[i], (v0[i] & M32) * (v1[i] >> 32))
+    z1, z0 = _zipper_words(v1[1], v1[0])
+    v0[0], v0[1] = _add64(v0[0], z0), _add64(v0[1], z1)
+    z1, z0 = _zipper_words(v0[1], v0[0])
+    v1[0], v1[1] = _add64(v1[0], z0), _add64(v1[1], z1)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_word_round_matches_port_round(seed):
+    """The round as the core's instructions compute it, on each lane pair of
+    a random state, equals ``HighwayHash256._update`` on the whole state,
+    packet after packet (carries out of the low words and 64-bit
+    wraparound included: states near 2^64 are drawn on purpose)."""
+    rng = np.random.default_rng(1000 + seed)
+    ref = HighwayHash256()
+    draw = lambda: [int(x) for x in rng.integers(0, 1 << 64, 4, dtype=np.uint64)]  # noqa: E731
+    ref.v0, ref.v1, ref.mul0, ref.mul1 = draw(), draw(), draw(), draw()
+    ref.v1[0] = M64 - int(rng.integers(0, 1 << 16))  # low-word carries and wraparound
+    pairs = [[list(f[2 * q: 2 * q + 2]) for f in (ref.v0, ref.v1, ref.mul0, ref.mul1)]
+             for q in (0, 1)]
+    for _ in range(5):
+        packet = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+        ref._update(packet)
+        for q in (0, 1):
+            half = packet[16 * q: 16 * q + 16]
+            _word_round(pairs[q], [int.from_bytes(half[:8], "little"),
+                                   int.from_bytes(half[8:], "little")])
+        for f, field in enumerate((ref.v0, ref.v1, ref.mul0, ref.mul1)):
+            assert pairs[0][f] + pairs[1][f] == field
+
+
 @pytest.mark.parametrize("n", [0, 1, 3, 4, 15, 16, 17, 19, 31, 32, 33, 63, 64, 95, 100])
 def test_split_model_matches_jax_package(n):
     msgs = np.random.default_rng(100 + n).integers(0, 256, size=(3, n), dtype=np.uint8)
@@ -218,6 +289,93 @@ def test_ring_windows_model(n, start):
                 got = _load16(bytes(slot), off, r)
                 want = row[k * w + 32 * pk + 16 * q: k * w + 32 * pk + 16 * q + 16]
                 assert got == want
+
+
+@pytest.mark.parametrize("n", [32, 33, 95, 1000, 4097, 131072])
+@pytest.mark.parametrize("start", [0, 16, 32, 48])
+def test_ring_windows_aligned_reads(n, start):
+    """Where the row start is 16-byte aligned (r = 0 or 16), the aligned
+    path reads each packet half of every window as one 16-byte aligned
+    read at 32p + 16q + r in the slot, inside the slot, and gets the
+    generic path's bytes. Every read is of a packet the window holds: the
+    read issued a round ahead stops at the window's last packet."""
+    p = bitrot_cuda.plan(1, n)
+    mem = np.random.default_rng(n + start).integers(0, 256, start + n, dtype=np.uint8)
+    row = mem[start:].tobytes()
+    whole = n - n % 32
+    w, r = p.stage_bytes, start & 31
+    assert r in (0, 16)
+    for k in range(-(-whole // w)):
+        a = start + k * w
+        y = a + min(w, whole - k * w)
+        a32 = a & ~31
+        lo = max(a32, start & ~15)
+        hi = min((y + 31) & ~31, (start + n + 15) & ~15)
+        slot = bytearray(p.slot_bytes)
+        slot[lo - a32: hi - a32] = mem[lo:hi].tobytes()
+        packets = (y - a) // 32
+        assert packets >= 1
+        for pk in range(packets):  # the window's rounds, each read one ahead
+            for q in (0, 1):
+                off = 32 * pk + 16 * q + (r & 28)
+                assert off % 16 == 0 and off + 16 <= p.slot_bytes
+                got = bytes(slot[off: off + 16])
+                assert got == _load16(bytes(slot), off, r)
+                assert got == row[k * w + 32 * pk + 16 * q: k * w + 32 * pk + 16 * q + 16]
+
+
+# -- the read-path choice ------------------------------------------------------
+
+READ_N = [32, 33, 1024, 65536, 87382, 131072]
+
+
+@pytest.mark.parametrize("n", READ_N)
+@pytest.mark.parametrize("off", range(32))
+def test_read_path_contiguous_rows(off, n):
+    """K2's rows, back to back from ``base``: aligned exactly when every
+    row start is 16-byte aligned (one row: its start alone)."""
+    base = (1 << 20) + off
+    for rows in (1, 2, 7, 1024):
+        want = all((base + i * n) % 16 == 0 for i in range(rows))
+        assert bitrot_cuda.aligned((base, rows, n)) == want
+    assert bitrot_cuda.aligned((base, 0, n))  # no row, nothing misaligned
+
+
+@pytest.mark.parametrize("n", READ_N)
+@pytest.mark.parametrize("off", range(32))
+def test_read_path_fused_rows(off, n):
+    """K1's shards: B*d input rows from ``data`` and B*r output rows from
+    ``out``; the launch is aligned exactly when every start of both is."""
+    for b, d, r, out_off in ((1, 1, 1, 0), (1, 8, 8, 16), (16, 8, 8, 0), (2, 12, 4, 8)):
+        data, out = (1 << 20) + off, (1 << 24) + out_off
+        starts = [data + (i * d + j) * n for i in range(b) for j in range(d)]
+        starts += [out + (i * r + j) * n for i in range(b) for j in range(r)]
+        want = all(x % 16 == 0 for x in starts)
+        assert bitrot_cuda.aligned((data, b * d, n), (out, b * r, n)) == want
+
+
+def test_core_launches_counted_by_path(monkeypatch):
+    """Each hash-core launch counts once under its wrapper and read path,
+    and /api/tpu exports the counts as
+    minio_tpu_hash_core_launches_total{kernel, path}."""
+    import collections
+
+    from minio_tpu_torch.server import metrics
+
+    monkeypatch.setattr(bitrot_cuda, "core_launches", collections.Counter())
+    bitrot_cuda.count_core_launch("fused_encode_hash", True)
+    bitrot_cuda.count_core_launch("fused_encode_hash", True)
+    bitrot_cuda.count_core_launch("fused_encode_hash", False)
+    bitrot_cuda.count_core_launch("hh_chain", False)
+    assert bitrot_cuda.core_launches == {("fused_encode_hash", "aligned"): 2,
+                                         ("fused_encode_hash", "generic"): 1,
+                                         ("hh_chain", "generic"): 1}
+    lines = [ln for ln in metrics._g_api_tpu(None)
+             if ln.startswith("minio_tpu_hash_core_launches_total{")]
+    assert lines == [
+        'minio_tpu_hash_core_launches_total{kernel="fused_encode_hash",path="aligned"} 2',
+        'minio_tpu_hash_core_launches_total{kernel="fused_encode_hash",path="generic"} 1',
+        'minio_tpu_hash_core_launches_total{kernel="hh_chain",path="generic"} 1']
 
 
 # -- the launch plan -----------------------------------------------------------

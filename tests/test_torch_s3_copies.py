@@ -102,7 +102,9 @@ DELIBERATE = {
         "minio_tpu_kernel_launch_shapes_total{kernel=...,shape=...}: the hand "
         "kernels' launches in all and by shape, which a deployment's nodes "
         "report to prove their traffic ran on the card at shapes the smoke "
-        "then holds against the plain versions",
+        "then holds against the plain versions; and "
+        "minio_tpu_hash_core_launches_total{kernel=...,path=...}: K1's and "
+        "K2's hash-core launches by read path (aligned or generic)",
     ("server/sftp.py", "_SFTPSession._close"):
         GATEWAY_PUT,
     ("server/sftp.py", "_SFTPSession._rename"):
