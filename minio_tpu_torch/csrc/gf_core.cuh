@@ -75,6 +75,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "hh_core.cuh"  // mbar_init, mbar_arrive_expect_tx, mbar_wait, bulk_g2s
 
 #define GF_THREADS 256      // the most threads a block
@@ -310,6 +312,11 @@ gf_core_kernel(const GfJob job, const int groups) {
 template <int E, int C>
 static int gf_core_launch_ec(const GfJob& job, int groups, int threads, int grid, int smem,
                              cudaStream_t stream) {
+  // the shared-memory limit is the kernel's, not the launch's: another
+  // thread setting a smaller one between this set and this launch would
+  // fail the launch, so the two go together
+  static std::mutex mu;
+  const std::lock_guard<std::mutex> hold(mu);
   const cudaError_t e = cudaFuncSetAttribute(
       gf_core_kernel<E, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;

@@ -10,8 +10,10 @@ missing shards) is ONE binary matrix product over bit planes:
 ``torch.matmul`` has no integer path on CUDA, so the 0/1 planes multiply
 in float32 with TF32 off: every sum is at most 8k <= 96, an exact float.
 This product is plain torch (outside any hand-written kernel), as the
-reference left it to XLA. The EC <= 8+8 shapes go through the fused CUDA
-kernel instead (``ops/fused_cuda.py``).
+reference left it to XLA. On the card, encode takes K3 instead
+(``ops/rs_cuda.py``, the same bit-plane matrix as byte tables in one
+launch), and the dispatcher's EC <= 8+8 shapes take the fused CUDA
+kernel (``ops/fused_cuda.py``).
 
 Byte-identical with ``ops/rs.py`` (the numpy reference codec).
 """
@@ -131,9 +133,16 @@ class TorchRSCodec:
     # -- encode ------------------------------------------------------------
 
     def encode_blocks(self, data) -> torch.Tensor:
-        """[..., d, n] data shards -> [..., p, n] parity shards (on device)."""
-        return gf_apply_bits(self._w_encode_dev, self.as_tensor(data),
-                             self.parity_shards)
+        """[B, d, n] data shards -> [B, p, n] parity shards (on device).
+        On the card, K3 applies the bit-plane matrix in one launch, where
+        the product here takes a dozen kernels and twice as many host
+        calls."""
+        x = self.as_tensor(data)
+        if x.device.type == "cuda" and x.numel():
+            from .rs_cuda import gf_apply_cuda
+
+            return gf_apply_cuda(self.w_encode, x, self.parity_shards)
+        return gf_apply_bits(self._w_encode_dev, x, self.parity_shards)
 
     def encode_data(self, data: bytes) -> np.ndarray:
         """bytes -> [total, per_shard] encoded shards (host round-trip).

@@ -330,15 +330,14 @@ class DeviceDispatcher:
             b <<= 1
         return b
 
-    def _fused_cm(self, all_blocks: np.ndarray, marks: list | None = None):
-        """Fused encode+hash kernel dispatch when shapes allow (ops/
-        fused_cuda.py, K1). Returns None for the bit-plane product + chain
-        kernel (unsupported shape, MINIO_TPU_FUSED_CM=0, or an injected
-        ``kernel-fail``, which backs off and re-probes). A real kernel
-        error propagates: no other rung hides a broken kernel.
-
-        ``marks``: where the kernel ran, gets the monotonic ns at the
-        copy in, its end, the launch's return and the copies out's end."""
+    def _fused_cm(self, all_blocks: np.ndarray):
+        """The fused encode+hash kernel (ops/fused_cuda.py, K1) for this
+        batch when shapes allow: a callable (codec, data tensor) ->
+        (parity, digests) on the device, as the bit-plane route's. None
+        for the bit-plane product + chain kernel (unsupported shape,
+        MINIO_TPU_FUSED_CM=0, or an injected ``kernel-fail``, which backs
+        off and re-probes). A real kernel error propagates: no other rung
+        hides a broken kernel."""
         if not self._fused_enabled:
             return None
         if self._fused_cooldown > 0:
@@ -360,17 +359,7 @@ class DeviceDispatcher:
             with self._cv:
                 self.stats["fused_failures"] += 1
             return None
-        _mark(marks)
-        data = self.codec.as_tensor(all_blocks)
-        _mark(marks)
-        parity, digests = fp.fused_encode_hash(data, d, p)
-        _mark(marks)
-        parity, digests = parity.cpu().numpy(), digests.cpu().numpy()
-        _mark(marks)
-        self._fused_backoff = 8  # healthy again: reset the backoff
-        with self._cv:
-            self.stats["fused"] += 1
-        return parity, digests
+        return lambda _codec, data: fp.fused_encode_hash(data, d, p)
 
     # -- degradation ladder ------------------------------------------------
 
@@ -473,8 +462,9 @@ class DeviceDispatcher:
         from ..erasure import bufpool
 
         t_start = _monotonic()
-        # the span ring's marks (ns): start, assembled, the fused route's
-        # device phases (``_fused_cm``), the device phase's end
+        # the span ring's marks (ns): start, assembled, a device route's
+        # phases (copy in, its end, the launches' return, the copies
+        # out's end), the device phase's end
         ring = obs.ring()
         marks = [time.monotonic_ns()] if ring is not None else None
         dev_marks: list | None = [] if ring is not None else None
@@ -570,28 +560,34 @@ class DeviceDispatcher:
                 t_dev = _monotonic()
                 try:
                     self._tpu_fault_hook()
-                    fused = (
-                        self._fused_cm(all_blocks, dev_marks) if fusable else None
-                    )
-                    was_fused = fused is not None
-                    if fused is None:
+                    enc = self._fused_cm(all_blocks) if fusable else None
+                    was_fused = enc is not None
+                    if enc is None:
                         # don't pay fused kernel padding (16) on the bit-plane
                         # path: trim back to the power-of-two bucket
                         nb = self._bucket(k)
                         if nb < all_blocks.shape[0]:
                             all_blocks = all_blocks[:nb]
                         if family == "cauchy":
-                            from ..ops.cauchy import encode_and_hash_cauchy
-
-                            fused = encode_and_hash_cauchy(codec, all_blocks)
+                            from ..ops.cauchy import encode_and_hash_cauchy as enc
                         else:
-                            fused = self._encode_and_hash(codec, all_blocks)
-                    parity, digests = fused
-                    # the copy to host is the device sync point: execute
-                    # + D2H land inside the device window, fan-out is
-                    # host time
+                            enc = self._encode_and_hash
+                    # the device phases: the copy in, its end, the
+                    # launches' return, the copies out's end. The copy to
+                    # host is the device sync point: execute + D2H land
+                    # inside the device window, fan-out is host time
+                    _mark(dev_marks)
+                    data = codec.as_tensor(all_blocks)
+                    _mark(dev_marks)
+                    parity, digests = enc(codec, data)
+                    _mark(dev_marks)
                     parity = to_numpy(parity)[:k]
                     digests = to_numpy(digests)[:k]
+                    _mark(dev_marks)
+                    if was_fused:
+                        self._fused_backoff = 8  # healthy again: reset the backoff
+                        with self._cv:
+                            self.stats["fused"] += 1
                     shards = np.concatenate(
                         [all_blocks[:k], parity], axis=1
                     )  # [B, t, n]
@@ -619,6 +615,11 @@ class DeviceDispatcher:
                 shards, digests = self._encode_numpy(all_blocks[:k], family)
                 with self._cv:
                     self.stats["numpy_blocks"] += k
+                route = "numpy"
+            elif was_fused:
+                route = "fused"
+            else:
+                route = "cauchy" if family == "cauchy" else "bitplane"
             _mark(marks)
             from ..erasure.coder import family_stats_add
 
@@ -650,7 +651,7 @@ class DeviceDispatcher:
                 off += kk
             if ring is not None:
                 _mark(marks)
-                _ring_batch(ring, batch, marks, dev_marks, k * d * n)
+                _ring_batch(ring, batch, marks, dev_marks, k * d * n, route)
             host_s = _monotonic() - t_start - device_s
             with self._cv:
                 self.stats["host_s"] += host_s
@@ -698,13 +699,14 @@ def _mark(marks: list | None) -> None:
 
 
 def _ring_batch(ring, batch: list[tuple], marks: list[int], dev: list[int],
-                nbytes: int) -> None:
+                nbytes: int, route: str) -> None:
     """One served batch in the span ring: each item's ``dispatch.queue``
     (enqueue to dispatch start, under its request and submitter's span),
-    and ``dispatch.batch`` with its phases as children: ``assemble``,
-    on the fused route ``h2d``, ``kernels`` (to the launch's return) and
-    ``d2h`` (the kernels' end and the copies out), and ``results`` (to
-    the last future set)."""
+    and ``dispatch.batch``, labelled with the route that served it
+    (``fused``, ``bitplane``, ``cauchy`` or ``numpy``), with its phases
+    as children: ``assemble``, on every device route ``h2d``,
+    ``kernels`` (to the launches' return) and ``d2h`` (the kernels' end
+    and the copies out), and ``results`` (to the last future set)."""
     t0, t_asm, t_dev, t_end = marks
     reqs = {it[4][0] for it in batch if it[4]}
     req = reqs.pop() if len(reqs) == 1 else ""
@@ -713,7 +715,7 @@ def _ring_batch(ring, batch: list[tuple], marks: list[int], dev: list[int],
         ring.add("dispatch.queue", "", ctx[0], obs.next_span_id(), ctx[1],
                  int(it[3] * 1e9), t0, it[0].nbytes)
     bid = obs.next_span_id()
-    ring.add("dispatch.batch", "", req, bid, 0, t0, t_end, nbytes)
+    ring.add("dispatch.batch", route, req, bid, 0, t0, t_end, nbytes)
     phases = [("dispatch.assemble", t0, t_asm)]
     if len(dev) == 4:
         phases += [("dispatch.h2d", dev[0], dev[1]),

@@ -74,6 +74,59 @@ def test_cuda_k3_matches_plain():
     assert torch.equal(got, rs_cuda.gf_apply_plain(w, x, 8, sub=2))
 
 
+def test_cuda_k3_concurrent_launches_of_two_table_sizes():
+    """K3 from 8 threads at once on two binary matrices of one core
+    instantiation (16-byte entries) whose tables need different shared
+    memory above the 48 KiB default (12 and 16 input rows): each launch
+    sets the kernel's limit, so the set and the launch go together, and
+    every launch succeeds and matches the plain version."""
+    import threading
+
+    rng = np.random.default_rng(9)
+    cases = []
+    for k in (12, 16):
+        w = rng.integers(0, 2, size=(8 * 12, 8 * k), dtype=np.int8)
+        x = torch.randint(0, 256, (2, k, 4097), dtype=torch.uint8).cuda()
+        cases.append((w, x, rs_cuda.gf_apply_plain(w, x.cpu(), 12)))
+    errors = []
+
+    def work(i):
+        w, x, want = cases[i % 2]
+        try:
+            outs = [rs_cuda.gf_apply_cuda(w, x, 12) for _ in range(300)]
+            torch.cuda.synchronize()
+            errors.extend(i for o in outs if not torch.equal(o.cpu(), want))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
+
+
+@pytest.mark.parametrize("b", [1, 3, 4])
+def test_cuda_rs_encode_12_4_takes_k3(b):
+    """Reed-Solomon encode on the card at 12+4 (rows of 87,382 bytes, as
+    MinIO's default 16-drive set cuts a 1 MiB block) is one K3 launch,
+    and its parity and the route's digests are the numpy reference's."""
+    d, p, n = 12, 4, 87382
+    data = np.random.default_rng(b).integers(0, 256, size=(b, d, n), dtype=np.uint8)
+    codec = rs_torch.get_torch_codec(d, p, "cuda")
+    before = rs_cuda.launches
+    par, dig = bitrot_torch.encode_and_hash(codec, data)
+    assert rs_cuda.launches == before + 1
+    ref = rs.get_codec(d, p)
+    shards = np.concatenate([data, par.cpu().numpy()], axis=1)
+    for i in range(b):
+        whole = np.concatenate([data[i], np.zeros((p, n), np.uint8)])
+        assert np.array_equal(shards[i], ref.encode(whole))
+    assert np.array_equal(dig.cpu().numpy(),
+                          hash256_batch_numpy(shards.reshape(b * (d + p), n)).reshape(b, d + p, 32))
+
+
 def test_cuda_fused_matches_plain(encoded):
     data, par, dig = encoded
     gp, gd = fused_cuda.fused_encode_hash(torch.from_numpy(data).cuda(), D, P)

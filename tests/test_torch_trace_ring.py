@@ -307,7 +307,7 @@ def test_dispatcher_queue_and_batch_spans(restore_publisher, monkeypatch):
     q, b = by["dispatch.queue"], by["dispatch.batch"]
     assert q.req_id == "DQ1" and q.parent_id == wait.span_id and q.bytes == blocks.nbytes
     assert q.end_ns == b.start_ns
-    assert b.req_id == "DQ1" and b.bytes == blocks.nbytes
+    assert b.req_id == "DQ1" and b.bytes == blocks.nbytes and b.label == "fused"
     phases = [by[n] for n in ("dispatch.assemble", "dispatch.h2d", "dispatch.kernels",
                               "dispatch.d2h", "dispatch.results")]
     # the fused route (its plain version on the CPU): each phase a child
