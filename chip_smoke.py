@@ -193,7 +193,9 @@ Phases (any failure raises and the script exits non-zero):
    (rows=1, n=131,072), the per-chain floor, and two alignment pairs: K2
    on 8,192 rows of 65,536, of 43,691 and of 43,680 bytes (aligned rows,
    rows at odd addresses, and aligned rows of the odd rows' whole-packet
-   length), whose time per packet round the script compares; K3 at the
+   length), whose time per packet round the script compares; K2 on the 16
+   shards of one EC:4 block (n = 87,382), back to back and at the shard
+   slab's 32-byte pitch (87,392), ns a round each; K3 at the
    8x24 composite, B=256, on rows at odd addresses (h = 43,691) and on
    16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-10
    are skipped and the main path's shapes are taken from
@@ -522,10 +524,11 @@ def check_k1(torch, mods, case, plain, timed: bool, time_plain: bool = False) ->
     return res
 
 
-def check_k2(torch, mods, g, rows: int, n: int, timed: bool) -> dict:
+def check_k2(torch, mods, g, rows: int, n: int, timed: bool, pitch: int = 0) -> dict:
+    """K2 on ``rows`` rows of n bytes, back to back or one ``pitch`` apart."""
     bc, bt, hh = mods["bc"], mods["bt"], mods["hh"]
-    y = torch.randint(0, 256, (rows, n), dtype=torch.uint8, device=torch.device(DEV),
-                      generator=g)
+    y = torch.randint(0, 256, (rows, pitch or n), dtype=torch.uint8, device=torch.device(DEV),
+                      generator=g)[:, :n]
     got = bc.hash256_blocks(y)
     torch.cuda.synchronize()
     want, plain_ms = timed_once(torch, lambda: bt.hash256_blocks_plain(y))
@@ -802,6 +805,17 @@ def kernel_phase(torch, mods, shapes: dict) -> dict:
     for n in (65536, -(-MIB // 12) // 2, (-(-MIB // 12) // 2) & ~31):
         r = check_k2(torch, mods, g, 8192, n, timed=True)
         r.update(shape=f"alignment pair: rows=8192 n={n}", launches=None)
+        res["hh_chain"]["shapes"].append(r)
+        print(f"hh_chain {r['shape']}: err={r['max_abs_err']} ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f}", flush=True)
+
+    # the EC:4 route's 16 shards of a 1 MiB block (12+4, n = 87,382): back
+    # to back, as the cat laid them (generic read path), and at the shard
+    # slab's 32-byte pitch (aligned path)
+    n = -(-MIB // 12)
+    for pitch in (n, mods["bt"].pitch(n)):
+        r = check_k2(torch, mods, g, 16, n, timed=True, pitch=pitch)
+        r.update(shape=f"slab pair: rows=16 pitch={pitch} n={n}", launches=None)
         res["hh_chain"]["shapes"].append(r)
         print(f"hh_chain {r['shape']}: err={r['max_abs_err']} ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f}", flush=True)
@@ -3445,8 +3459,11 @@ def main(argv: list[str]) -> int:
               if "ms" in r and int(r["shape"].rsplit("n=", 1)[1]) >= 32}
     aligned, odd, same = (rounds[f"alignment pair: rows=8192 n={n}"] for n in (
         65536, -(-MIB // 12) // 2, (-(-MIB // 12) // 2) & ~31))
+    cat, slab = (rounds[f"slab pair: rows=16 pitch={p} n={-(-MIB // 12)}"]
+                 for p in (-(-MIB // 12), mods["bt"].pitch(-(-MIB // 12))))
     print(json.dumps({"k2_ns_per_round": rounds, "unaligned_over_aligned": odd / aligned,
-                      "unaligned_over_aligned_same_length": odd / same}))
+                      "unaligned_over_aligned_same_length": odd / same,
+                      "ec4_block_ns_per_round": {"back_to_back": cat, "slab_pitch": slab}}))
     k3_odd, k3_aligned = (next(r["ms"] for r in kres["gf_apply"]["shapes"] if r["shape"] == (
         f"alignment pair: {shape_name((256, 24, 8, h, 2))}")) for h in K3_PAIR)
     print(json.dumps({"k3_unaligned_over_aligned": k3_odd / k3_aligned}))

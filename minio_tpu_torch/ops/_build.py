@@ -37,9 +37,12 @@ _U64 = ctypes.c_uint64
 # truncates them to 32-bit ints
 SIGNATURES = {
     "hh_chain": {
-        # (msgs, rows, n, k0..k3, out, aligned, plan: msgs_per_cta,
+        # (msgs, rows, n, pitch, k0..k3, out, aligned, plan: msgs_per_cta,
         #  stages, stage_bytes, slot_bytes, smem_bytes, stream)
-        "hh_chain": [_P, _I64, _I64, _U64, _U64, _U64, _U64, _P, *[_I64] * 6, _P],
+        "hh_chain": [_P, _I64, _I64, _I64, _U64, _U64, _U64, _U64, _P, *[_I64] * 6, _P],
+        # (dst, dst_pitch, dst_rows, src, src_pitch, src_rows, width, rows,
+        #  items, to_device, stream)
+        "copy_rows": [_P, _I64, _I64, _P, *[_I64] * 6, _P],
     },
     "gf_apply": {
         # (in, in_bs, out, out_bs, B, k, r, n, tables, offs, GF plan:

@@ -5,13 +5,19 @@ Counterpart of the JAX package's ``ops/bitrot_pallas.py``
 ``csrc/hh_chain.cu`` on the hash core ``csrc/hh_core.cuh``: two threads
 per message (one per lane pair), packets fed through a TMA-filled ring
 in shared memory, tail packet and finalization included, so any length
-n >= 0, any number of messages and any row start work. ``plan`` sizes
-the core's launch for K1 and K2 alike, and ``aligned`` picks its read
-path from the launch's row starts: one 16-byte shared-memory read a
-packet half where every row start is 16-byte aligned, else five 4-byte
-reads and four funnel shifts. For a CPU tensor the wrapper runs
-the plain PyTorch version (``bitrot_torch.hash256_blocks_plain``); for a
-CUDA tensor it launches the kernel or raises.
+n >= 0, any number of messages and any row start work, the rows back to
+back or at any pitch. ``plan`` sizes the core's launch for K1 and K2
+alike, and ``aligned`` picks its read path from the launch's row starts:
+one 16-byte shared-memory read a packet half where every row start is
+16-byte aligned, else five 4-byte reads and four funnel shifts. For a
+CPU tensor the wrapper runs the plain PyTorch version
+(``bitrot_torch.hash256_blocks_plain``); for a CUDA tensor it launches the
+kernel or raises.
+
+``rows_to_card`` and ``rows_to_host`` move [B, r, n] rows between a host
+array and a CUDA tensor view whose rows lie at any pitch, in one pitched
+copy (``copy_rows`` in ``csrc/hh_chain.cu``): the encode route's way into
+and out of its shard slab (``bitrot_torch.shard_slab``).
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 import collections
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -27,7 +34,7 @@ from .card import BLOCK_SMEM_MAX, BLOCK_SMEM_RESERVED, SM_SMEM, SMS
 from .highwayhash import MINIO_KEY
 
 __all__ = ["hash256_blocks", "plan", "Plan", "aligned", "count_core_launch", "launches",
-           "launch_shapes", "core_launches"]
+           "launch_shapes", "core_launches", "pitched", "rows_to_card", "rows_to_host"]
 
 # kernel launches made by hash256_blocks (CPU calls do not count), and
 # the (B, n) shapes they were made at -> launches
@@ -88,10 +95,11 @@ def plan(rows: int, n: int) -> Plan:
 
 def aligned(*runs: tuple[int, int, int]) -> bool:
     """Whether every row start of a hash-core launch is 16-byte aligned,
-    which gives it the 16-byte read path. ``runs``: (address, rows, n),
-    each ``rows`` rows of n bytes back to back from ``address``."""
-    return all(rows <= 0 or (addr % 16 == 0 and (rows == 1 or n % 16 == 0))
-               for addr, rows, n in runs)
+    which gives it the 16-byte read path. ``runs``: (address, rows,
+    pitch), each ``rows`` rows from ``address``, one every ``pitch``
+    bytes (the row length n for rows back to back)."""
+    return all(rows <= 0 or (addr % 16 == 0 and (rows == 1 or pitch % 16 == 0))
+               for addr, rows, pitch in runs)
 
 
 def count_core_launch(kernel: str, is_aligned: bool) -> None:
@@ -100,7 +108,11 @@ def count_core_launch(kernel: str, is_aligned: bool) -> None:
 
 
 def hash256_blocks(blocks: torch.Tensor, key: bytes = MINIO_KEY) -> torch.Tensor:
-    """[B, n] uint8 -> [B, 32] uint8 digests, on blocks' device."""
+    """[B, n] uint8 -> [B, 32] uint8 digests, on blocks' device. On the
+    card the rows are hashed where they lie, ``blocks.stride(0)`` bytes
+    apart (the shard slab's pitch, ``bitrot_torch.shard_slab``), where
+    each row's bytes are contiguous; another layout is made contiguous
+    first."""
     global launches
     if blocks.dim() != 2 or blocks.dtype != torch.uint8:
         raise ValueError(f"want a [B, n] uint8 tensor, got {tuple(blocks.shape)} {blocks.dtype}")
@@ -109,18 +121,80 @@ def hash256_blocks(blocks: torch.Tensor, key: bytes = MINIO_KEY) -> torch.Tensor
     if blocks.device.type != "cuda":
         raise ValueError(f"no HighwayHash kernel for device {blocks.device}")
     lib = _build.load()["hh_chain"]
-    blocks = blocks.contiguous()
     b, n = blocks.shape
+    if (n > 1 and blocks.stride(1) != 1) or (b > 1 and blocks.stride(0) < n):
+        blocks = blocks.contiguous()
+    pitch = blocks.stride(0) if b > 1 else n
     out = torch.empty((b, 32), dtype=torch.uint8, device=blocks.device)
     if b == 0:
         return out
-    rows_aligned = aligned((blocks.data_ptr(), b, n))
+    rows_aligned = aligned((blocks.data_ptr(), b, pitch))
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hh_chain(blocks.data_ptr(), b, n, *_build.key_words(key),
+        rc = lib.hh_chain(blocks.data_ptr(), b, n, pitch, *_build.key_words(key),
                           out.data_ptr(), rows_aligned, *plan(b, n).args(), stream)
     _build.check(rc, "hh_chain")
     launches += 1
     launch_shapes[(b, n)] += 1
     count_core_launch("hh_chain", rows_aligned)
+    return out
+
+
+def pitched(shape: tuple[int, ...], strides: tuple[int, ...]) -> tuple[int, int] | None:
+    """(pitch, rows an item) of a [B, r, n] uint8 layout (strides in
+    bytes) that one pitched copy can address: each row's bytes
+    contiguous, a row every ``pitch`` >= n bytes, an item every ``rows``
+    >= r pitches. None for any other layout."""
+    b, r, n = shape
+    if n > 1 and strides[2] != 1:
+        return None
+    pitch = strides[1] if r > 1 else (strides[0] if b > 1 else n)
+    rows = strides[0] // pitch if b > 1 and pitch > 0 else r
+    if pitch < n or rows < r or (b > 1 and strides[0] != rows * pitch):
+        return None
+    return pitch, rows
+
+
+def _copy_rows(card: torch.Tensor, host: np.ndarray, to_device: bool) -> None:
+    """One pitched copy between a [B, r, n] CUDA view and a host array of
+    the same shape, both laid out as ``pitched`` takes."""
+    if not card.numel():
+        return
+    lay_card = pitched(tuple(card.shape), card.stride())
+    lay_host = pitched(host.shape, host.strides)
+    if lay_card is None or lay_host is None:
+        raise ValueError(f"rows of shape {tuple(card.shape)} cannot go in one pitched copy")
+    b, r, n = card.shape
+    lib = _build.load()["hh_chain"]
+    host_ptr = host.ctypes.data
+    with torch.cuda.device(card.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if to_device:
+            rc = lib.copy_rows(card.data_ptr(), *lay_card, host_ptr, *lay_host, n, r, b, 1, stream)
+        else:
+            rc = lib.copy_rows(host_ptr, *lay_host, card.data_ptr(), *lay_card, n, r, b, 0, stream)
+    _build.check(rc, "copy_rows")
+
+
+def rows_to_card(dst: torch.Tensor, src) -> None:
+    """Copy host rows ``src`` ([B, r, n] uint8 array) into the CUDA view
+    ``dst`` of the same shape, whose rows may lie at any pitch, in one
+    pitched copy; returns once the copy has finished."""
+    # miniovet: ignore[hostsync] -- src is host memory (an array or a CPU
+    # tensor); nothing on the card is read
+    src = np.asarray(src, dtype=np.uint8)
+    if src.shape != tuple(dst.shape) or dst.dtype != torch.uint8 or dst.device.type != "cuda":
+        raise ValueError(f"want a [B, r, n] uint8 CUDA view of shape {src.shape}, "
+                         f"got {tuple(dst.shape)} {dst.dtype} on {dst.device}")
+    if pitched(src.shape, src.strides) is None:
+        src = np.ascontiguousarray(src)
+    _copy_rows(dst, src, to_device=True)
+
+
+def rows_to_host(src: torch.Tensor) -> np.ndarray:
+    """A [B, r, n] uint8 CUDA view whose rows may lie at any pitch -> a
+    new C-contiguous host array, in one pitched copy (``.cpu()`` of a
+    strided view compacts it with a kernel on the card first)."""
+    out = np.empty(tuple(src.shape), dtype=np.uint8)
+    _copy_rows(src, out, to_device=False)
     return out

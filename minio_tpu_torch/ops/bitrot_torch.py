@@ -8,7 +8,8 @@ Counterpart of the JAX package's ``ops/bitrot_jax.py``. Holds:
   runs for CPU tensors;
 - ``encode_and_hash`` / ``reconstruct_and_hash``: RS encode or rebuild
   followed by the per-shard bitrot digests, the shards staying on the
-  device between the two;
+  device between the two; the encode keeps a batch's shards in one
+  ``ShardSlab`` at a 32-byte row pitch (``shard_slab``);
 - ``_try_fused_decode``: the decode route into the fused CUDA kernel,
   with its backoff after an injected ``kernel-fail`` and ``decode_stats``.
 
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import os
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,7 +36,8 @@ import torch
 from ..fault import registry as fault_registry
 from .highwayhash import INIT0, INIT1, MINIO_KEY
 
-__all__ = ["hash256_blocks_plain", "encode_and_hash", "reconstruct_and_hash"]
+__all__ = ["hash256_blocks_plain", "encode_and_hash", "reconstruct_and_hash", "ShardSlab",
+           "shard_slab", "pitch"]
 
 _M32 = 0xFFFFFFFF
 _M16 = 0xFFFF
@@ -300,23 +303,85 @@ def reconstruct_and_hash(codec, survivors, present: tuple[int, ...],
     return rebuilt, digests
 
 
+SECTOR = 32  # bytes: a slab row starts on a sector, K2's copies' unit
+
+
+def pitch(n: int) -> int:
+    """The shard slab's row pitch for rows of n bytes: n rounded up to a
+    whole number of 32-byte sectors (n itself where it is one)."""
+    return -(-n // SECTOR) * SECTOR
+
+
+class ShardSlab(NamedTuple):
+    """A batch's shards in one [B, d + p, P] uint8 tensor, P = pitch(n):
+    block b's shard j (data first, then parity) is the first n bytes of
+    ``rows[b, j]``, so every shard starts on a sector of an aligned
+    allocation; the P - n bytes after it are never read."""
+
+    rows: torch.Tensor
+    d: int
+    n: int
+
+    @property
+    def data(self) -> torch.Tensor:
+        """The data shards, a [B, d, n] view."""
+        return self.rows[:, :self.d, :self.n]
+
+    @property
+    def parity(self) -> torch.Tensor:
+        """The parity shards, a [B, p, n] view."""
+        return self.rows[:, self.d:, :self.n]
+
+    def shards(self) -> torch.Tensor:
+        """Every shard of the batch, a [B * (d + p), n] view at pitch P."""
+        b, t, p = self.rows.shape
+        return self.rows.view(b * t, p)[:, :self.n]
+
+
+def shard_slab(codec, data) -> ShardSlab:
+    """[B, d, n] uint8 data (an array or a tensor) -> a new ``ShardSlab``
+    on the codec's device with the data shards copied in: from the host
+    to the card in one pitched copy of the data's own bytes
+    (``bitrot_cuda.rows_to_card``), so no kernel lays rows out."""
+    b, d, n = data.shape
+    rows = torch.empty((b, d + codec.parity_shards, pitch(n)), dtype=torch.uint8,
+                       device=codec.device)
+    slab = ShardSlab(rows, d, n)
+    if rows.is_cuda and not (isinstance(data, torch.Tensor) and data.is_cuda):
+        from .bitrot_cuda import rows_to_card
+
+        rows_to_card(slab.data, data)
+    else:
+        slab.data.copy_(codec.as_tensor(data))
+    return slab
+
+
 def encode_and_hash(codec, data, key: bytes = MINIO_KEY):
-    """RS-encode + bitrot-hash: data [B, d, n] uint8 -> (parity [B, p, n],
-    digests [B, d+p, 32]) as tensors on the codec's device. The parity is
-    the bit-plane product; the digests come from the chain kernel."""
+    """RS-encode + bitrot-hash: data [B, d, n] uint8 (an array, a tensor,
+    or the ``ShardSlab`` that ``shard_slab`` filled) -> (parity [B, p, n],
+    digests [B, d+p, 32]) as tensors on the codec's device. The shards
+    stay in one slab: the bit-plane product (K3 on the card) writes the
+    parity rows in place and the chain kernel (K2) hashes every row where
+    it lies, so no shard is copied on the device. The parity is a view of
+    the slab (``to_numpy`` brings it over in one pitched copy)."""
     from .bitrot_cuda import hash256_blocks
 
-    data = codec.as_tensor(data)
-    b, d, n = data.shape
-    parity = codec.encode_blocks(data)
-    shards = torch.cat([data, parity], dim=1)  # [B, t, n]
-    t = d + codec.parity_shards
-    digests = hash256_blocks(shards.reshape(b * t, n), key).reshape(b, t, 32)
-    return parity, digests
+    slab = data if isinstance(data, ShardSlab) else shard_slab(codec, data)
+    b, t, _ = slab.rows.shape
+    codec.encode_blocks(slab.data, out=slab.parity)
+    digests = hash256_blocks(slab.shards(), key).reshape(b, t, 32)
+    return slab.parity, digests
 
 
 def to_numpy(x) -> np.ndarray:
-    """Tensor (any device) or array -> host numpy array."""
+    """Tensor (any device) or array -> host numpy array. A [B, r, n]
+    CUDA view whose rows lie at a pitch (a shard slab's parity) comes
+    over in one pitched copy, with no compacting kernel on the card."""
     if isinstance(x, torch.Tensor):
+        if x.is_cuda and x.dim() == 3 and x.dtype == torch.uint8 and not x.is_contiguous():
+            from .bitrot_cuda import pitched, rows_to_host
+
+            if pitched(tuple(x.shape), x.stride()) is not None:
+                return rows_to_host(x)
         return x.cpu().numpy()
     return np.asarray(x)

@@ -494,18 +494,20 @@ class CauchyTorchCodec:
             a = np.array(a, dtype=np.uint8)
         return torch.from_numpy(a).to(self.device)
 
-    def encode_blocks(self, data) -> torch.Tensor:
+    def encode_blocks(self, data, out: torch.Tensor | None = None) -> torch.Tensor:
         """[..., d, per] uint8 (per even) -> [..., p, per] parity, on the
-        codec's device."""
+        codec's device; written into ``out`` where given, as
+        ``TorchRSCodec.encode_blocks`` does."""
         from .rs_cuda import gf_apply_cuda
 
         data = self.as_tensor(data)
         *batch, d, per = data.shape
         if per % 2:
             raise ValueError("device cauchy encode needs an even shard size")
-        par = gf_apply_cuda(self.w_composite, data.reshape(-1, d, per),
-                            self.parity_shards, sub=SUB_CHUNKS)
-        return par.reshape(*batch, self.parity_shards, per)
+        p = self.parity_shards
+        par = gf_apply_cuda(self.w_composite, data.reshape(-1, d, per), p, sub=SUB_CHUNKS,
+                            out=None if out is None else out.reshape(-1, p, per))
+        return par.reshape(*batch, p, per)
 
     def encode_data(self, data: bytes) -> np.ndarray:
         """bytes -> [t, per] encoded shards (host round-trip, test path).

@@ -19,6 +19,11 @@ sub-chunk s of row j, and the [B, sub*r, h] composite result is written
 back as [B, r, sub*h] the same way. The cauchy family's encode is this
 with sub = 2 (its a and b halves), with no transpose copy on either side.
 
+Rows are read and written where they lie: the input may be a view whose
+rows sit at any pitch (each row's bytes contiguous), and ``out`` a view
+to write into, as the encode route writes parity into its shard slab
+(``bitrot_torch.shard_slab``).
+
 For a CPU tensor the wrapper runs the plain PyTorch version
 (``gf_apply_plain``: the bit-plane product of ``rs_torch.gf_apply_bits``);
 for a CUDA tensor it launches the kernel or raises.
@@ -82,11 +87,13 @@ def _tables(key: bytes, r8: int, k8: int, device: str) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _offsets(k: int, r: int, n: int, sub: int, device: str) -> torch.Tensor:
+def _offsets(k: int, r: int, n: int, sub: int, in_pitch: int, out_pitch: int,
+             device: str) -> torch.Tensor:
     """Byte offsets of the composite rows inside one batch item: input
-    row s*k + j at j*sub*n + s*n, then output row s*r + i at i*sub*n + s*n."""
-    rows_in = [j * sub * n + s * n for s in range(sub) for j in range(k)]
-    rows_out = [i * sub * n + s * n for s in range(sub) for i in range(r)]
+    row s*k + j at j*in_pitch + s*n, then output row s*r + i at
+    i*out_pitch + s*n (a pitch of sub*n for rows back to back)."""
+    rows_in = [j * in_pitch + s * n for s in range(sub) for j in range(k)]
+    rows_out = [i * out_pitch + s * n for s in range(sub) for i in range(r)]
     return torch.tensor(rows_in + rows_out, dtype=torch.int64, device=device)
 
 
@@ -116,32 +123,45 @@ def gf_apply_plain(w_bits, data: torch.Tensor, out_shards: int, sub: int = 1) ->
     return out.reshape(b, sub, out_shards, h).transpose(1, 2).reshape(b, out_shards, sub * h)
 
 
-def gf_apply_cuda(w_bits, data: torch.Tensor, out_shards: int, sub: int = 1) -> torch.Tensor:
+def gf_apply_cuda(w_bits, data: torch.Tensor, out_shards: int, sub: int = 1,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """[8r, 8k] bit-plane matrix applied to [B, k, n] (or [k, n]) uint8
     shard bytes -> [B, r, n] (or [r, n]) on data's device; with ``sub``,
-    the [8*sub*r, 8*sub*k] matrix over sub-chunk rows (module docstring)."""
+    the [8*sub*r, 8*sub*k] matrix over sub-chunk rows (module docstring).
+    ``out``: a view of that shape on data's device to write the result
+    into (each row's bytes contiguous, no byte shared with ``data`` or
+    another row), returned; by default a new tensor."""
     global launches
     squeeze = data.dim() == 2
     if squeeze:
         data = data[None]
+        out = None if out is None else out[None]
     w = _as_bits(w_bits)
     h = _check(w, data, out_shards, sub)
-    if data.device.type == "cpu":
-        out = gf_apply_plain(w, data, out_shards, sub)
-        return out[0] if squeeze else out
     b, k, n = data.shape
+    if out is not None and (tuple(out.shape) != (b, out_shards, n) or out.dtype != torch.uint8
+                            or out.device != data.device or (n > 1 and out.stride(2) != 1)):
+        raise ValueError(f"want out of shape {(b, out_shards, n)} uint8 on {data.device} with "
+                         f"contiguous rows, got {tuple(out.shape)} {out.dtype} on {out.device}")
+    if data.device.type == "cpu":
+        res = gf_apply_plain(w, data, out_shards, sub)
+        if out is not None:
+            res = out.copy_(res)
+        return res[0] if squeeze else res
     kc, rc = sub * k, sub * out_shards
     launch = gf_cuda.plan(b, kc, rc, h)  # raises where the tables do not fit a block
-    data = data.contiguous()
+    if n > 1 and data.stride(2) != 1:
+        data = data.contiguous()
+    if out is None:
+        out = torch.empty((b, out_shards, n), dtype=torch.uint8, device=data.device)
     dev = str(data.device)
     tables = _tables(w.tobytes(), w.shape[0], w.shape[1], dev)
-    offs = _offsets(k, out_shards, h, sub, dev)
-    out = torch.empty((b, out_shards, n), dtype=torch.uint8, device=data.device)
+    offs = _offsets(k, out_shards, h, sub, data.stride(1), out.stride(1), dev)
     lib = _build.load()["gf_apply"]
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gf_apply(data.data_ptr(), k * n, out.data_ptr(), out_shards * n, b, kc, rc, h,
-                           tables.data_ptr(), offs.data_ptr(), *launch.args(), stream)
+        err = lib.gf_apply(data.data_ptr(), data.stride(0), out.data_ptr(), out.stride(0), b, kc,
+                           rc, h, tables.data_ptr(), offs.data_ptr(), *launch.args(), stream)
     _build.check(err, "gf_apply")
     launches += 1
     launch_shapes[(b, kc, rc, h, sub)] += 1

@@ -132,17 +132,19 @@ class TorchRSCodec:
 
     # -- encode ------------------------------------------------------------
 
-    def encode_blocks(self, data) -> torch.Tensor:
-        """[B, d, n] data shards -> [B, p, n] parity shards (on device).
-        On the card, K3 applies the bit-plane matrix in one launch, where
-        the product here takes a dozen kernels and twice as many host
-        calls."""
+    def encode_blocks(self, data, out: torch.Tensor | None = None) -> torch.Tensor:
+        """[B, d, n] data shards -> [B, p, n] parity shards (on device),
+        written into ``out`` where given (a view whose rows may lie at any
+        pitch: the shard slab's parity rows) and returned. On the card,
+        K3 applies the bit-plane matrix in one launch, where the product
+        here takes a dozen kernels and twice as many host calls."""
         x = self.as_tensor(data)
         if x.device.type == "cuda" and x.numel():
             from .rs_cuda import gf_apply_cuda
 
-            return gf_apply_cuda(self.w_encode, x, self.parity_shards)
-        return gf_apply_bits(self._w_encode_dev, x, self.parity_shards)
+            return gf_apply_cuda(self.w_encode, x, self.parity_shards, out=out)
+        parity = gf_apply_bits(self._w_encode_dev, x, self.parity_shards)
+        return parity if out is None else out.copy_(parity)
 
     def encode_data(self, data: bytes) -> np.ndarray:
         """bytes -> [total, per_shard] encoded shards (host round-trip).

@@ -12,7 +12,8 @@ accelerator changes about the architecture.
 The device is the codec's torch device (the H100 in production, the CPU
 in tests, where every kernel wrapper runs its plain version). Blocks move
 host -> device with ``torch.from_numpy(...).to(device)`` and back with
-``.cpu().numpy()``.
+``.cpu().numpy()``; on the bit-plane route each way is one pitched copy
+into and out of the batch's shard slab (``bitrot_torch.shard_slab``).
 
 Latency contract: a block waits at most `window` (default 2 ms) before
 dispatch; an idle queue dispatches immediately. p99 PUT latency gains the
@@ -32,6 +33,7 @@ foreground block ever waits behind background batch slots (it stays 0).
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 import time
@@ -42,7 +44,7 @@ import numpy as np
 
 from .. import obs
 from ..fault import registry as fault_registry
-from ..ops.bitrot_torch import to_numpy
+from ..ops.bitrot_torch import shard_slab, to_numpy
 from ..qos.context import PRI_BACKGROUND, PRI_FOREGROUND, current_priority
 
 # backend degradation ladder (fault/ tpu boundary): fused CUDA kernel
@@ -562,6 +564,7 @@ class DeviceDispatcher:
                     self._tpu_fault_hook()
                     enc = self._fused_cm(all_blocks) if fusable else None
                     was_fused = enc is not None
+                    copy_in = codec.as_tensor
                     if enc is None:
                         # don't pay fused kernel padding (16) on the bit-plane
                         # path: trim back to the power-of-two bucket
@@ -571,13 +574,16 @@ class DeviceDispatcher:
                         if family == "cauchy":
                             from ..ops.cauchy import encode_and_hash_cauchy as enc
                         else:
+                            # the bit-plane route's copy in fills the data
+                            # rows of the batch's pitched shard slab
                             enc = self._encode_and_hash
+                            copy_in = functools.partial(shard_slab, codec)
                     # the device phases: the copy in, its end, the
                     # launches' return, the copies out's end. The copy to
                     # host is the device sync point: execute + D2H land
                     # inside the device window, fan-out is host time
                     _mark(dev_marks)
-                    data = codec.as_tensor(all_blocks)
+                    data = copy_in(all_blocks)
                     _mark(dev_marks)
                     parity, digests = enc(codec, data)
                     _mark(dev_marks)

@@ -212,3 +212,143 @@ def test_cuda_k1_misaligned_view_takes_generic_path():
     assert torch.equal(gp, ap) and torch.equal(gd, ad)
     wp, wd = fused_cuda.fused_plain(host, rs.get_codec(d, p).parity_matrix)
     assert torch.equal(ad.cpu(), wd) and torch.equal(ap.cpu(), wp)
+
+
+# -- EC:4's route: the batch's shards in one slab at a 32-byte pitch ----------
+
+EC4 = (12, 4)
+
+
+def _device_ops(trace_path: str) -> list[tuple[str, str]]:
+    """(category, name) of every operation on the card in a profiler
+    trace, in the categories the benchmark reads (s3bench/devtrace.py)."""
+    import json
+
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return [(e["cat"], e.get("name", "?")) for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+@pytest.mark.parametrize("b,r", [(1, 12), (3, 12), (2, 4), (3, 1)])
+@pytest.mark.parametrize("n", [17, 1000, 87382])
+def test_cuda_pitched_copies_round_trip(b, r, n):
+    """Rows go from a host array into a slab's rows at the 32-byte pitch
+    and back, in one pitched copy each way, with the bytes between the
+    rows untouched; a host view whose items are not whole rows apart is
+    copied contiguous first."""
+    rng = np.random.default_rng(b * r * n)
+    host = rng.integers(0, 256, size=(b, r + 2, n), dtype=np.uint8)
+    pitch = bitrot_torch.pitch(n)
+    slab = torch.full((b, r + 3, pitch), 7, dtype=torch.uint8, device="cuda")
+    view = slab[:, 1:r + 1, :n]
+    bitrot_cuda.rows_to_card(view, host[:, 1:r + 1])  # items r + 2 rows apart
+    back = bitrot_cuda.rows_to_host(view)
+    assert back.flags.c_contiguous and np.array_equal(back, host[:, 1:r + 1])
+    assert np.array_equal(bitrot_torch.to_numpy(view), host[:, 1:r + 1])
+    whole = slab.cpu().numpy()
+    assert (whole[:, 0] == 7).all() and (whole[:, r + 1:] == 7).all()
+    assert (whole[:, :, n:] == 7).all()
+    odd = np.repeat(host, 2, axis=2)[:, :r, ::2]  # bytes 2 apart: not pitched
+    bitrot_cuda.rows_to_card(view, odd)
+    assert np.array_equal(bitrot_cuda.rows_to_host(view), host[:, :r])
+
+
+@pytest.mark.parametrize("n", [87382, 87392, 1000, 17])
+@pytest.mark.parametrize("b", [1, 2, 4, 16])
+def test_cuda_bitplane_route_serves_from_the_slab(b, n):
+    """The dispatcher's bit-plane route at 12+4 on the card: the batch's
+    parity and digests are the numpy rung's byte for byte, its one K2
+    launch counts on the aligned read path, and the four device marks are
+    stamped (the ring's ``dispatch.h2d``, ``kernels`` and ``d2h``)."""
+    from minio_tpu_torch import obs
+    from minio_tpu_torch.parallel.dispatcher import DeviceDispatcher
+    from minio_tpu_torch.server.metrics import TracePubSub
+
+    d, p = EC4
+    codec = rs_torch.get_torch_codec(d, p, "cuda")
+    assert not fused_cuda.supports(d, p, 16, n)
+    blocks = np.random.default_rng(b + n).integers(0, 256, size=(b, d, n), dtype=np.uint8)
+    prev = obs.publisher()
+    pub = TracePubSub(ring=obs.SpanRing(1024))
+    obs.set_publisher(pub)
+    try:
+        disp = DeviceDispatcher(codec, n, window_s=0.05)
+        before = _path_launches()
+        shards, digests = disp.submit(blocks).result(timeout=120)
+        after = _path_launches()
+        import time
+
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not any(
+                sp.name == "dispatch.results" for sp in pub.ring.snapshot()[0]):
+            time.sleep(0.01)
+        kept = pub.ring.snapshot()[0]
+    finally:
+        obs.set_publisher(prev)
+    want_shards, want_digests = disp._encode_numpy(blocks)
+    assert np.array_equal(shards, want_shards) and np.array_equal(digests, want_digests)
+    assert after.get(("hh_chain", "aligned"), 0) == before.get(("hh_chain", "aligned"), 0) + 1
+    assert after.get(("hh_chain", "generic"), 0) == before.get(("hh_chain", "generic"), 0)
+    (batch,) = [sp for sp in kept if sp.name == "dispatch.batch"]
+    assert batch.label == "bitplane"
+    kids = sorted((sp for sp in kept if sp.parent_id == batch.span_id), key=lambda sp: sp.start_ns)
+    assert [sp.name for sp in kids] == ["dispatch.assemble", "dispatch.h2d", "dispatch.kernels",
+                                        "dispatch.d2h", "dispatch.results"]
+
+
+@pytest.mark.parametrize("b", [1, 2, 4])
+def test_cuda_slab_batch_runs_only_k3_and_k2(b, tmp_path):
+    """One batch of the route as the dispatcher runs it (the copy into the
+    slab, K3 and K2, the copies out) puts on the card K3's and K2's
+    kernels and nothing else: no cat, no compacting copy kernel; and one
+    copy in and two out, which the benchmark's span readers match to the
+    batch one to one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    d, p = EC4
+    codec = rs_torch.get_torch_codec(d, p, "cuda")
+    blocks = np.random.default_rng(b).integers(0, 256, size=(b, d, 87382), dtype=np.uint8)
+
+    def batch():
+        par, dig = bitrot_torch.encode_and_hash(codec, bitrot_torch.shard_slab(codec, blocks))
+        return bitrot_torch.to_numpy(par), bitrot_torch.to_numpy(dig)
+
+    want = batch()  # builds, caches K3's tables and offsets
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = batch()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    ops = _device_ops(str(tmp_path / "trace.json"))
+    kernels = [name for cat, name in ops if cat == "kernel"]
+    assert len(kernels) == 2, kernels
+    assert any("gf_core_kernel" in k for k in kernels)
+    assert any("hh_ring_kernel<ContigRows>" in k for k in kernels)
+    copies = [name for cat, name in ops if cat == "gpu_memcpy"]
+    assert sum("HtoD" in c for c in copies) == 1 and sum("DtoH" in c for c in copies) == 2, copies
+    assert not [o for o in ops if o[0] == "gpu_memset"]
+    assert all(np.array_equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [17, 1000, 87382])
+def test_cuda_hash_at_a_pitch_and_back_to_back(n):
+    """K2 on the same rows back to back (pitch = n) at every start offset
+    0-15, and one pitch apart in a slab: the digests do not change, and
+    the slab's rows take the aligned read path."""
+    rows = 16
+    g = torch.Generator().manual_seed(n)
+    host = torch.randint(0, 256, (rows, n), dtype=torch.uint8, generator=g)
+    want = bitrot_torch.hash256_blocks_plain(host)
+    buf = torch.empty(16 + rows * n, dtype=torch.uint8, device="cuda")
+    for off in range(16):
+        view = buf[off: off + rows * n].view(rows, n)
+        view.copy_(host)
+        assert view.stride() == (n, 1)
+        assert torch.equal(bitrot_cuda.hash256_blocks(view).cpu(), want)
+    slab = torch.zeros((rows, bitrot_torch.pitch(n)), dtype=torch.uint8, device="cuda")
+    slab[:, :n] = host
+    before = _path_launches()
+    assert torch.equal(bitrot_cuda.hash256_blocks(slab[:, :n]).cpu(), want)
+    after = _path_launches()
+    assert after.get(("hh_chain", "aligned"), 0) == before.get(("hh_chain", "aligned"), 0) + 1

@@ -8,6 +8,11 @@ route (``dispatch.h2d``, ``dispatch.kernels``, ``dispatch.d2h``), and its
 ``dispatch.batch`` row names the route that served it; the shard files
 the batch hands back are the NumPy reference's (``s3bench/reference.py``)
 byte for byte. The numpy rung stamps no device phase.
+
+The route keeps a batch's shards in one slab at a 32-byte row pitch
+(``bitrot_torch.shard_slab``): the pitch, the read path it gives K2
+(``bitrot_cuda.aligned``), K3's row offsets into it, the layouts one
+pitched copy takes, and the route's bytes against the numpy rung.
 """
 
 from __future__ import annotations
@@ -95,16 +100,35 @@ def _one_batch(disp, blocks: np.ndarray, codec=None):
 
 
 @pytest.mark.parametrize("b", [1, 3, 4])
-def test_bitplane_route_stamps_the_device_phases(ring, b):
-    from minio_tpu_torch.ops import fused_cuda, rs_torch
+def test_bitplane_route_stamps_the_device_phases(ring, b, monkeypatch):
+    from minio_tpu_torch.ops import bitrot_torch, fused_cuda, rs_torch
+    from minio_tpu_torch.parallel import dispatcher
 
     assert not fused_cuda.supports(D, P, 16, N)  # so the bit-plane route serves
+    slabs, encoded = [], []
+    real_slab, real_enc = dispatcher.shard_slab, bitrot_torch.encode_and_hash
+
+    def slab(codec, data):
+        slabs.append(real_slab(codec, data))
+        return slabs[-1]
+
+    def enc(codec, data):
+        encoded.append(data)
+        return real_enc(codec, data)
+
+    monkeypatch.setattr(dispatcher, "shard_slab", slab)
     objects = _objects(2 ** 31 + b, b)
     disp = _dispatcher(rs_torch.get_torch_codec(D, P))
+    disp._encode_and_hash = enc
     shards, digests = _one_batch(disp, _blocks(objects))
     (batch,) = _batches(ring, 1)
     assert batch.label == "bitplane"
     assert _phases(ring, batch) == list(PHASES)
+    # the copy in filled the data rows of one slab at the 32-byte pitch,
+    # and the launches took that slab
+    (got,) = slabs
+    assert encoded == [got]
+    assert got.rows.shape == ({1: 1, 3: 4, 4: 4}[b], D + P, bitrot_torch.pitch(N))
     # B = 3 pads to the power-of-two bucket of 4
     assert disp.stats["pad_blocks"] == {1: 0, 3: 1, 4: 0}[b]
     assert disp.stats["numpy_blocks"] == 0 and disp.stats["fused"] == 0
@@ -159,3 +183,100 @@ def test_numpy_rung_stamps_no_device_phase(ring, how):
     for j, obj in enumerate(objects):
         got = [digests[j, i].tobytes() + shards[j, i].tobytes() for i in range(D + P)]
         assert got == reference.shard_files(obj, D, P)
+
+
+# -- the shard slab ------------------------------------------------------------
+
+@pytest.mark.parametrize("n,want", [(0, 0), (17, 32), (1000, 1024), (1024, 1024),
+                                    (87382, 87392), (131072, 131072)])
+def test_slab_pitch(n, want):
+    """A slab row's pitch: n rounded up to a multiple of 32, n itself
+    where it is one (the layout is then rows back to back)."""
+    from minio_tpu_torch.ops import bitrot_torch
+
+    assert bitrot_torch.pitch(n) == want
+    assert want % 32 == 0 and n <= want < n + 32
+
+
+@pytest.mark.parametrize("off", range(32))
+@pytest.mark.parametrize("n", [17, 1000, 87382, 87392])
+def test_read_path_at_the_slab_pitch(off, n):
+    """K2's rows one pitch apart: at the slab's pitch every row starts as
+    the base does, so the launch takes the aligned path exactly when the
+    base is 16-byte aligned; back to back (pitch n) it needs n % 16 == 0
+    as well."""
+    from minio_tpu_torch.ops import bitrot_cuda, bitrot_torch
+
+    base = (1 << 20) + off
+    for pitch in (bitrot_torch.pitch(n), n):
+        for rows in (1, 16, 12 * 16 + 4 * 16):
+            want = all((base + i * pitch) % 16 == 0 for i in range(rows))
+            assert bitrot_cuda.aligned((base, rows, pitch)) == want
+    assert bitrot_cuda.aligned((base, 16, bitrot_torch.pitch(n))) == (off % 16 == 0)
+
+
+@pytest.mark.parametrize("b", [1, 2, 4])
+@pytest.mark.parametrize("n", [17, 1000, 87382])
+def test_k3_row_offsets_at_the_slab_pitch(b, n):
+    """K3 reads item i's data row j at ``in + i*in_bs + offs[j]`` and
+    writes its parity row r at ``out + i*out_bs + offs[d + r]``; with the
+    strides the wrapper passes for a slab's data and parity views, each
+    lands on that view's row, and the rows of one item never overlap."""
+    from minio_tpu_torch.ops import bitrot_torch, rs_cuda, rs_torch
+
+    codec = rs_torch.get_torch_codec(D, P, "cpu")
+    slab = bitrot_torch.shard_slab(codec, np.zeros((b, D, n), np.uint8))
+    data, par = slab.data, slab.parity
+    pitch = bitrot_torch.pitch(n)
+    assert data.stride() == ((D + P) * pitch, pitch, 1) and par.stride() == data.stride()
+    offs = rs_cuda._offsets(D, P, n, 1, data.stride(1), par.stride(1), "cpu").tolist()
+    assert offs == [j * pitch for j in range(D)] + [r * pitch for r in range(P)]
+    for i in range(b):
+        for j in range(D):
+            assert data[i, j].data_ptr() == data.data_ptr() + i * data.stride(0) + offs[j]
+        for r in range(P):
+            assert par[i, r].data_ptr() == par.data_ptr() + i * par.stride(0) + offs[D + r]
+    starts = sorted(data[i, j].data_ptr() for i in range(b) for j in range(D))
+    starts = sorted(starts + [par[i, r].data_ptr() for i in range(b) for r in range(P)])
+    assert all(y - x >= n for x, y in zip(starts, starts[1:]))
+    # rows back to back, as before the slab: the offsets of a contiguous tensor
+    assert rs_cuda._offsets(D, P, n, 1, n, n, "cpu").tolist() == (
+        [j * n for j in range(D)] + [r * n for r in range(P)])
+
+
+@pytest.mark.parametrize("shape,strides,want", [
+    ((2, 12, 87382), (16 * 87392, 87392, 1), (87392, 16)),    # a slab's data rows
+    ((2, 4, 87382), (16 * 87392, 87392, 1), (87392, 16)),     # its parity rows
+    ((3, 12, 1000), (12 * 1000, 1000, 1), (1000, 12)),        # a host array
+    ((1, 12, 17), (999, 32, 1), (32, 12)),                    # one item: its stride unused
+    ((3, 1, 64), (96, 7, 1), (96, 1)),                        # one row an item
+    ((2, 12, 100), (1250, 100, 1), None),                     # item stride not whole rows
+    ((2, 12, 100), (1200, 50, 1), None),                      # rows overlap
+    ((2, 12, 100), (2400, 200, 2), None),                     # bytes not contiguous
+])
+def test_pitched_copy_layouts(shape, strides, want):
+    """The [B, r, n] layouts that one pitched copy addresses (each row's
+    bytes contiguous, rows a pitch >= n apart, items whole pitches apart),
+    as (pitch, rows an item)."""
+    from minio_tpu_torch.ops import bitrot_cuda
+
+    assert bitrot_cuda.pitched(shape, strides) == want
+
+
+@pytest.mark.parametrize("b", [1, 2, 4])
+@pytest.mark.parametrize("n", [17, 1000, N])
+def test_cpu_encode_and_hash_matches_numpy_rung(b, n):
+    """``encode_and_hash`` on the CPU, through the slab (the plain K3 and
+    K2 on its views), gives the numpy rung's parity and digests at 12+4,
+    from a host array and from the slab ``shard_slab`` filled; the parity
+    is a view of the slab, and ``to_numpy`` brings it over whole."""
+    from minio_tpu_torch.ops import bitrot_torch, rs_torch
+
+    codec = rs_torch.get_torch_codec(D, P, "cpu")
+    blocks = np.random.default_rng(b * n).integers(0, 256, size=(b, D, n), dtype=np.uint8)
+    want_shards, want_digests = _dispatcher(codec)._encode_numpy(blocks)
+    for data in (blocks, bitrot_torch.shard_slab(codec, blocks)):
+        parity, digests = bitrot_torch.encode_and_hash(codec, data)
+        assert parity.shape == (b, P, n) and parity.stride(1) == bitrot_torch.pitch(n)
+        assert np.array_equal(bitrot_torch.to_numpy(parity), want_shards[:, D:])
+        assert np.array_equal(bitrot_torch.to_numpy(digests), want_digests)
