@@ -168,7 +168,7 @@ Phases (any failure raises and the script exits non-zero):
    have launched; no dispatcher the cases reached may have moved a fault
    counter, except those the ladder case built, which must show its walk
    (two device faults or more, one demotion, a probe, a promotion, no
-   fused-kernel failure) with K1 at 4+2, B=16, n=1,024 launched twice or
+   fused-kernel failure) with K1 at 4+2, B=2, n=1,024 launched twice or
    more, the base encode and the batch after the promotion (a ``ladder``
    line prints their counters and the seconds from the faults clearing to
    the promotion); and no ``minio_tpu`` module may be imported at the end.
@@ -398,16 +398,16 @@ def max_abs_err(torch, got, want) -> int:
 # the shapes the main path gives each kernel, for ``--kernels`` runs
 # (no object phase to read them from): the dispatcher's cap of 4,096
 # shards is 256 blocks at 8+8, and one 1 MiB PUT at a time is one block
-# padded to 16 (the benchmark's cell); degraded GETs decode 8-block
-# windows padded to 16 with all 8 data shards rebuilt from parity; EC 12+4 PUTs hash
+# (the benchmark's cell); degraded GETs decode 8-block windows with all 8
+# data shards rebuilt from parity; EC 12+4 PUTs hash
 # 64 and 256 blocks of 16 shards of 87,382 bytes (and the graft entry's
 # dry run one 8+8 block of 16 shards of 128 KiB a rank, its one-step
 # check 2 blocks of 6 shards of 1 KiB); cauchy PUTs apply the
 # [2p, 2d] composite to 256 blocks' a/b halves (K3 keys: B, 2d, 2p, h,
 # sub-chunks) and hash their 2 x 16 sub-chunks per block
 DEFAULT_SHAPES = {
-    "fused_encode_hash": [("encode", 256, 8, 8, 131072), ("encode", 16, 8, 8, 131072)],
-    "fused_decode_hash": [("decode", 16, 8, 8, 131072, tuple(range(8, 16)), tuple(range(8)))],
+    "fused_encode_hash": [("encode", 256, 8, 8, 131072), ("encode", 1, 8, 8, 131072)],
+    "fused_decode_hash": [("decode", 8, 8, 8, 131072, tuple(range(8, 16)), tuple(range(8)))],
     "hh_chain": [(1024, -(-MIB // 12)), (4096, -(-MIB // 12)), (8192, 65536),
                  (8192, -(-MIB // 12) // 2), (16, MIB // 8), (12, 1024)],
     "gf_apply": [(256, 16, 16, 65536, 2), (256, 24, 8, -(-MIB // 12) // 2, 2)],
@@ -3135,7 +3135,7 @@ SUITE_FAULTS = ("fused_failures", "device_faults", "demotions")
 # the case that walks the degradation ladder on purpose, and the K1 shape
 # of its base encode and of its first batch after the promotion
 LADDER_CASE = "tests/test_torch_chaos.py::test_backend_degradation_round_trip"
-LADDER_K1 = ("encode", 16, 4, 2, 1024)
+LADDER_K1 = ("encode", 2, 4, 2, 1024)
 
 
 def suite_entry_runs(entry: str, nodeid: str) -> bool:

@@ -482,8 +482,8 @@ _ALL: list[Knob] = [
        "Straggler window a stripe block may wait for batch-mates before "
        "the fused encode dispatches."),
     _k("MINIO_TPU_FUSED_CM", "1", "tpu",
-       "Chunk-major fused encode/decode+hash mega-kernel (0 forces the "
-       "row-major XLA path)."),
+       "Fused encode/decode+hash kernel K1 (0 keeps K1 off: the bit-plane "
+       "product and K2)."),
     _k("MINIO_TPU_NO_NATIVE", None, "tpu",
        "Set to disable loading the native helper extension entirely."),
     _k("MINIO_TPU_TORCH_DEVICE", "cuda", "tpu",

@@ -46,7 +46,7 @@ HOSTSYNC_BOUNDARY: dict[str, set[str]] = {
     # the degradation probe's materialization IS the probe verdict
     # (_dispatch_group is the per-family half of the old _loop body)
     "parallel/dispatcher.py": {
-        "_loop", "_dispatch_group", "_fused_cm", "_probe_device",
+        "_loop", "_dispatch_group", "_probe_device",
     },
     # decode boundary: rebuilt shards + digests materialize for the
     # bitrot/write plane; to_numpy is the device-to-host copy the batch

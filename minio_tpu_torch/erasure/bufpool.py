@@ -79,8 +79,8 @@ _COPY_LOCK = threading.Lock()
 # metrics series (and the bench gate reading them) never miss a label
 _COPY_SITES = (
     "staging",          # ingest accumulation staging copy (legacy path)
-    "dispatch-concat",  # dispatcher batch assembly into the bucket arena
-    "dispatch-pad",     # zero-fill of the bucket pad tail
+    "dispatch-concat",  # dispatcher batch assembly into the batch arena
+    "dispatch-pad",     # zero-fill of a pad tail (the port pads no batch)
     "frame-tobytes",    # per-shard bytes materialization for framing
     "append-rpc",       # remote-drive append serialization (RPC boundary)
     "gather-join",      # GET block assembly join (legacy path)

@@ -413,9 +413,10 @@ class ErasureCoder:
         batch_blocks = max(1, MAX_DEVICE_SHARDS // self.t)
         if max_batch_bytes is not None:
             batch_blocks = max(1, min(batch_blocks, max_batch_bytes // self.block_size))
-        # round DOWN to a power of two: the dispatcher buckets batch
-        # sizes to powers of two, so an exact-fit arena dispatches as-is
-        # (no bucket copy, no pad) instead of padding 192 -> 256
+        # round DOWN to a power of two: ingest arenas come from bufpool's
+        # power-of-two size classes (192 blocks of 1 MiB would go past the
+        # top class of 128 MiB, unpooled); the dispatcher takes a batch
+        # at any size
         p2 = 1
         while p2 * 2 <= batch_blocks:
             p2 <<= 1

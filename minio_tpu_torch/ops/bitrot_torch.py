@@ -11,7 +11,7 @@ Counterpart of the JAX package's ``ops/bitrot_jax.py``. Holds:
   device between the two; the encode keeps a batch's shards in one
   ``ShardSlab`` at a 32-byte row pitch (``shard_slab``);
 - ``_try_fused_decode``: the decode route into the fused CUDA kernel,
-  with its backoff after an injected ``kernel-fail`` and ``decode_stats``.
+  behind its ``fused_cuda.Gate``, with ``decode_stats``.
 
 Torch has no working uint64 and little uint32 arithmetic, so the hash
 keeps each 64-bit lane as a (hi, lo) pair of 32-bit values held in int64
@@ -26,7 +26,7 @@ Validated against ops/highwayhash.py (scalar + numpy).
 
 from __future__ import annotations
 
-import os
+import functools
 import threading
 from typing import NamedTuple
 
@@ -222,12 +222,6 @@ def hash256_blocks_plain(blocks: torch.Tensor, key: bytes = MINIO_KEY) -> torch.
 
 # -- encode / decode + hash --------------------------------------------------
 
-# decode fallback discipline: an injected kernel-fail (fault/ registry,
-# tpu boundary) backs off exponentially and re-probes, the same policy as
-# the encode dispatcher
-_fused_dec_cooldown = 0
-_fused_dec_backoff = 8
-
 # served-traffic observability: lets tests (and the admin plane) assert
 # the fused decode kernel actually carried degraded reads. Lock-guarded:
 # concurrent degraded GETs reconstruct on worker threads.
@@ -235,44 +229,38 @@ decode_stats = {"fused": 0, "blocks": 0, "failures": 0}
 _decode_stats_lock = threading.Lock()
 
 
+@functools.cache
+def _decode_gate():
+    """The decode route's ``fused_cuda.Gate``, one for the process."""
+    from .fused_cuda import Gate
+
+    return Gate()
+
+
 def _try_fused_decode(codec, survivors, present, missing, key):
-    """Fused reconstruct + hash through the CUDA kernel when shapes allow.
+    """Fused reconstruct + hash through the CUDA kernel where the decode
+    route's gate admits the batch, at the survivors' own B.
 
     survivors: [B, d, n] uint8 (numpy or tensor). Returns (rebuilt
     [B, m, n], rebuilt_digests [B, m, 32], survivor_digests [B, d, 32])
     as numpy, or None for the bit-plane + chain-kernel path."""
-    global _fused_dec_cooldown, _fused_dec_backoff
-
-    if os.environ.get("MINIO_TPU_FUSED_CM", "1") == "0":
-        return None
-    if _fused_dec_cooldown > 0:
-        _fused_dec_cooldown -= 1
-        return None
     from . import fused_cuda as fc
 
     b, d, n = survivors.shape
-    m = len(missing)
-    bpad = -(-b // 16) * 16
-    if not fc.supports(d, m, bpad, n):
-        return None
-    shape = f"{d}+{codec.parity_shards}"
-    if fault_registry.check("tpu", shape, "kernel", modes=("kernel-fail",)) is not None:
-        # injected kernel failure: bit-plane path, with backoff. A real
-        # kernel error is not caught here: it reaches the caller.
-        _fused_dec_cooldown = _fused_dec_backoff
-        _fused_dec_backoff = min(_fused_dec_backoff * 2, 1024)
+    gate = _decode_gate()
+    take, fired = gate.admit(f"{d}+{codec.parity_shards}", d, len(missing), n)
+    if fired:
         with _decode_stats_lock:
             decode_stats["failures"] += 1
+    if not take:
         return None
-    surv = codec.as_tensor(survivors)
-    if bpad != b:
-        surv = torch.cat([surv, surv.new_zeros((bpad - b, d, n))], dim=0)
+    # a real kernel error is not caught here: it reaches the caller
     rebuilt, digests = fc.fused_decode_hash(
-        surv, d, codec.parity_shards, tuple(present), tuple(missing), key
+        codec.as_tensor(survivors), d, codec.parity_shards, tuple(present), tuple(missing), key
     )
-    rebuilt = rebuilt[:b].cpu().numpy()
-    digs = digests[:b].cpu().numpy()
-    _fused_dec_backoff = 8
+    rebuilt = rebuilt.cpu().numpy()
+    digs = digests.cpu().numpy()
+    gate.succeeded()
     with _decode_stats_lock:
         decode_stats["fused"] += 1
         decode_stats["blocks"] += b

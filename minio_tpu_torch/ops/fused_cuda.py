@@ -12,10 +12,11 @@ d + p shards, planned by ``bitrot_cuda.plan``). ``gf_apply_only`` runs
 the first launch alone, so its time can be read apart.
 
 The contract is the reference's bytes, in row-major shapes: [B, d, n] in,
-([B, p, n], [B, d+p, 32]) out; the TPU's chunk-major layout and paired
-bit-plane weight are not carried over. The shape gate ``supports`` is
-the reference's, so routing matches it (EC 12+4 keeps going through the
-bit-plane product and K2).
+([B, p, n], [B, d+p, 32]) out, at any B; the TPU's chunk-major layout and
+paired bit-plane weight are not carried over. ``Gate`` decides whether a
+batch goes to K1: the knob, a backoff after an injected ``kernel-fail``,
+and ``supports`` on (d, p, n) (EC 12+4 keeps going through the bit-plane
+product and K2).
 
 For CPU tensors the wrappers run the plain PyTorch version
 (``fused_plain``: the bit-plane product then the plain hash); for CUDA
@@ -26,10 +27,12 @@ from __future__ import annotations
 
 import collections
 import functools
+import os
 
 import numpy as np
 import torch
 
+from ..fault import registry as fault_registry
 from . import _build, gf, gf_cuda, rs
 from .bitrot_cuda import aligned, count_core_launch, plan
 from .bitrot_torch import hash256_blocks_plain
@@ -37,7 +40,7 @@ from .highwayhash import MINIO_KEY
 from .rs_torch import gf_apply_bits, gf_matrix_to_bitplanes
 
 __all__ = [
-    "supports", "fused_encode_hash", "fused_decode_hash", "fused_plain",
+    "supports", "Gate", "fused_encode_hash", "fused_decode_hash", "fused_plain",
     "decode_matrix", "gf_apply_only", "encode_launches", "decode_launches",
     "launch_shapes", "CHUNK_BYTES",
 ]
@@ -52,15 +55,46 @@ decode_launches = 0
 launch_shapes: collections.Counter = collections.Counter()
 
 
-def supports(d: int, p: int, batch: int, n: int) -> bool:
+def supports(d: int, p: int, n: int) -> bool:
     """Whether the fused kernel takes this shape (else the bit-plane
-    product + chain kernel). The reference's gates, unchanged: encode
-    (p = parity count) and decode (p = missing count) alike."""
+    product + chain kernel), at any batch size: encode (p = parity count)
+    and decode (p = missing count) alike."""
     if d > 8 or p > 8 or p < 1 or d < 1:
         return False
-    if batch < 16 or batch % 16 != 0:
-        return False
     return n % CHUNK_BYTES == 0 and n > 0
+
+
+class Gate:
+    """Whether K1 takes a batch. Checked in order: ``MINIO_TPU_FUSED_CM``
+    (0 keeps K1 off), the cooldown after an injected ``kernel-fail``,
+    ``supports``, then the fault registry, so an injected fault fires only
+    for shapes K1 takes. A fault sets a cooldown of 8 batches that doubles
+    to 1,024 while faults repeat; a K1 success (``succeeded``) resets it
+    to 8. One gate per caller: the dispatcher's per instance, the decode
+    route's at module level."""
+
+    def __init__(self):
+        self.cooldown = 0   # batches to skip before K1 is tried again
+        self._backoff = 8   # the next cooldown
+
+    def admit(self, shape: str, d: int, p: int, n: int) -> tuple[bool, bool]:
+        """(K1 takes the batch, an injected ``kernel-fail`` just fired);
+        shape names the codec ("d+p") to the fault registry."""
+        if os.environ.get("MINIO_TPU_FUSED_CM", "1") == "0":
+            return False, False
+        if self.cooldown > 0:
+            self.cooldown -= 1
+            return False, False
+        if not supports(d, p, n):
+            return False, False
+        if fault_registry.check("tpu", shape, "kernel", modes=("kernel-fail",)) is not None:
+            self.cooldown = self._backoff
+            self._backoff = min(self._backoff * 2, 1024)
+            return False, True
+        return True, False
+
+    def succeeded(self) -> None:
+        self._backoff = 8
 
 
 def gf_tables(m: np.ndarray) -> np.ndarray:
@@ -151,7 +185,7 @@ def _check(data: torch.Tensor, d: int, r: int) -> torch.Tensor:
     if data.dim() != 3 or data.dtype != torch.uint8 or data.shape[1] != d:
         raise ValueError(f"want a [B, {d}, n] uint8 tensor, got {tuple(data.shape)} {data.dtype}")
     b, _, n = data.shape
-    if not supports(d, r, b, n):
+    if b < 1 or not supports(d, r, n):
         raise ValueError(f"fused kernel does not take d={d}, p={r}, B={b}, n={n}")
     if data.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused kernel for device {data.device}")

@@ -15,9 +15,12 @@ host -> device with ``torch.from_numpy(...).to(device)`` and back with
 ``.cpu().numpy()``; on the bit-plane route each way is one pitched copy
 into and out of the batch's shard slab (``bitrot_torch.shard_slab``).
 
+A batch goes to the card at its own size: k blocks in, k blocks of
+parity and digests out, on every route.
+
 Latency contract: a block waits at most `window` (default 2 ms) before
 dispatch; an idle queue dispatches immediately. p99 PUT latency gains the
-window; throughput gains the full batch width of the MXU/VPU.
+window; a launch carries every block that arrived within it.
 
 Priority lanes (qos/): foreground blocks (S3 PUT/GET handlers) and
 background blocks (heal, scanner, decommission, rebalance — marked via
@@ -44,18 +47,19 @@ import numpy as np
 
 from .. import obs
 from ..fault import registry as fault_registry
+from ..ops import fused_cuda
 from ..ops.bitrot_torch import shard_slab, to_numpy
 from ..qos.context import PRI_BACKGROUND, PRI_FOREGROUND, current_priority
 
 # backend degradation ladder (fault/ tpu boundary): fused CUDA kernel
 # (K1) -> bit-plane torch product + chain kernel (K2) -> pure-numpy CPU.
 # Injected faults (fault_registry.DeviceFault) walk it: kernel-fail skips
-# K1 with backoff, repeated device-lost demotes to numpy, and background
-# probe batches re-promote. Cauchy batches have no fused rung: their
-# device rung is the composite apply (K3) + K2. The numpy rung is
-# byte-identical to the device rungs, so degraded mode changes latency,
-# never payloads. A real kernel or CUDA error is not a rung: it fails
-# the batch's waiters.
+# K1 with backoff (fused_cuda.Gate), repeated device-lost demotes to
+# numpy, and background probe batches re-promote. Cauchy batches have no
+# fused rung: their device rung is the composite apply (K3) + K2. The
+# numpy rung is byte-identical to the device rungs, so degraded mode
+# changes latency, never payloads. A real kernel or CUDA error is not a
+# rung: it fails the batch's waiters.
 LEVEL_FUSED = 2
 LEVEL_UNFUSED = 1
 LEVEL_NUMPY = 0
@@ -65,9 +69,9 @@ LEVEL_NUMPY = 0
 # sub-ms..100 ms kernel range
 QUEUE_WAIT_BUCKETS = (0.0005, 0.001, 0.002, 0.004, 0.008, 0.016, 0.05, 0.1, 0.5)
 DEVICE_TIME_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.5)
-# dispatched bucket sizes (blocks) — power-of-two padded, so the edges
-# ARE the possible sizes; pre-seeded so the /api/tpu occupancy series
-# can split pad waste from real batching from the first scrape
+# dispatched batch sizes (blocks): each edge is the upper bound of its
+# bucket; pre-seeded so the /api/tpu occupancy series exists from the
+# first scrape
 BUCKET_BLOCK_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
 
@@ -93,13 +97,8 @@ class DeviceDispatcher:
             if window_s is None
             else window_s
         )
-        # clamp to a power of two so _bucket padding can never overshoot
-        # the HBM shard cap _collect enforces
-        mb = max(1, max_shards // (codec.data_shards + codec.parity_shards))
-        p2 = 1
-        while p2 * 2 <= mb:
-            p2 *= 2
-        self.max_blocks = p2
+        # the device shard cap _collect enforces, in blocks
+        self.max_blocks = max(1, max_shards // (codec.data_shards + codec.parity_shards))
         # background lane policy: bg blocks fill at most this many slots of
         # any one dispatch, and a bg block older than max_age promotes to
         # the foreground lane (starvation protection). Malformed env
@@ -116,13 +115,9 @@ class DeviceDispatcher:
             )
         except ValueError:
             self.bg_max_age = 0.05
-        self._fused_enabled = (
-            os.environ.get("MINIO_TPU_FUSED_CM", "1") != "0"
-        )
-        # transient device failures back off and re-probe instead of
-        # disabling the kernel until restart
-        self._fused_cooldown = 0   # dispatches to skip before re-probing
-        self._fused_backoff = 8    # next cooldown length, doubles to a cap
+        # whether K1 takes a batch; an injected kernel-fail backs off and
+        # re-probes instead of disabling the kernel until restart
+        self._gate = fused_cuda.Gate()
         self._encode_and_hash = encode_and_hash
         # degradation ladder state: consecutive device (device-rung)
         # failures past the threshold demote to the numpy rung; a probe
@@ -174,10 +169,11 @@ class DeviceDispatcher:
             "queue_wait_s": 0.0,
             "queue_wait_hist": [0] * (len(QUEUE_WAIT_BUCKETS) + 1),
             "device_time_hist": [0] * (len(DEVICE_TIME_BUCKETS) + 1),
-            # zero-copy batch assembly: dispatched bucket sizes, blocks
-            # of pure pad, and exact-fit dispatches that skipped the
-            # bucket arena entirely (the caller's array went straight
-            # to the device — the streaming-PUT steady state)
+            # zero-copy batch assembly: dispatched batch sizes, blocks
+            # of pad (always 0: a batch goes at its own size; kept for
+            # the reference's metric), and single-entry dispatches that
+            # skipped the arena entirely (the caller's array went
+            # straight to the device — the streaming-PUT steady state)
             "pad_blocks": 0, "arena_direct": 0,
             "bucket_hist": [0] * (len(BUCKET_BLOCK_BUCKETS) + 1),
         }
@@ -322,47 +318,6 @@ class DeviceDispatcher:
                     self.stats["fg_deferred_behind_bg"] += 1
         return batch
 
-    @staticmethod
-    def _bucket(k: int) -> int:
-        """Pad batch sizes to power-of-two buckets: the jitted encode+hash
-        is shape-specialized, and arbitrary batch sizes would recompile the
-        (expensive) hash chain per novel size."""
-        b = 1
-        while b < k:
-            b <<= 1
-        return b
-
-    def _fused_cm(self, all_blocks: np.ndarray):
-        """The fused encode+hash kernel (ops/fused_cuda.py, K1) for this
-        batch when shapes allow: a callable (codec, data tensor) ->
-        (parity, digests) on the device, as the bit-plane route's. None
-        for the bit-plane product + chain kernel (unsupported shape,
-        MINIO_TPU_FUSED_CM=0, or an injected ``kernel-fail``, which backs
-        off and re-probes). A real kernel error propagates: no other rung
-        hides a broken kernel."""
-        if not self._fused_enabled:
-            return None
-        if self._fused_cooldown > 0:
-            self._fused_cooldown -= 1
-            return None
-        from ..ops import fused_cuda as fp
-
-        b, d, n = all_blocks.shape
-        p = self.codec.parity_shards
-        if not fp.supports(d, p, b, n):
-            return None
-        rule = fault_registry.check("tpu", self._shape, "kernel", modes=("kernel-fail",))
-        if rule is not None:
-            # injected kernel failure: the ladder's first rung (fused ->
-            # bit-plane + K2) engages, backing off exponentially before
-            # the fused kernel is probed again
-            self._fused_cooldown = self._fused_backoff
-            self._fused_backoff = min(self._fused_backoff * 2, 1024)
-            with self._cv:
-                self.stats["fused_failures"] += 1
-            return None
-        return lambda _codec, data: fp.fused_encode_hash(data, d, p)
-
     # -- degradation ladder ------------------------------------------------
 
     def _tpu_fault_hook(self) -> None:
@@ -486,52 +441,35 @@ class DeviceDispatcher:
                         f"expects {self.codec.data_shards}"
                     )
             d = self.codec.data_shards
+            p = self.codec.parity_shards
             n = batch[0][0].shape[2]
             k = sum(it[0].shape[0] for it in batch)
-            bucket = self._bucket(k)
-            fusable = family == "reedsolomon"  # fused kernel weights are RS
-            if (
-                bucket < 16 and fusable and self._fused_enabled
-                and self._fused_cooldown == 0
-            ):
-                from ..ops import fused_cuda as fp
-
-                # low-concurrency batches pad up to the fused kernel's
-                # floor rather than losing the fused path
-                if fp.supports(d, self.codec.parity_shards, 16, n):
-                    bucket = 16
-            if len(batch) == 1 and k == bucket:
-                # exact-fit single entry (the streaming-PUT steady state:
-                # ingest arenas are sized to the bucket): the caller's
-                # array — often a view of the pooled ingest arena — goes
-                # straight to the device. No concat, no pad, no arena.
+            if len(batch) == 1:
+                # a single entry (the streaming-PUT steady state, and a
+                # lone PUT's block): the caller's array — often a view of
+                # the pooled ingest arena — goes straight to the device.
+                # No concat, no arena.
                 all_blocks = batch[0][0]
                 with self._cv:
                     self.stats["arena_direct"] += 1
             else:
-                # pre-sized bucket arena replaces per-dispatch
-                # np.concatenate + pad allocation: entries copy in once
-                # (inherent — they arrive scattered), only the pad tail
-                # is zeroed, and the arena recycles after the dispatch
+                # a pooled arena of exactly k blocks replaces a
+                # per-dispatch np.concatenate: entries copy in once
+                # (inherent — they arrive scattered), and the arena
+                # recycles after the dispatch
                 if bufpool.zerocopy_enabled():
-                    arena_lease = bufpool.get_pool().acquire(bucket * d * n)
-                    all_blocks = arena_lease.array[: bucket * d * n].reshape(
-                        bucket, d, n
-                    )
+                    arena_lease = bufpool.get_pool().acquire(k * d * n)
+                    all_blocks = arena_lease.array[: k * d * n].reshape(k, d, n)
                 else:
-                    all_blocks = np.empty((bucket, d, n), dtype=np.uint8)
+                    all_blocks = np.empty((k, d, n), dtype=np.uint8)
                 off = 0
                 for it in batch:
                     kk = it[0].shape[0]
                     all_blocks[off : off + kk] = it[0]
                     off += kk
                 bufpool.count_copy("dispatch-concat", len(batch))
-                if bucket != k:
-                    all_blocks[k:] = 0
-                    bufpool.count_copy("dispatch-pad")
             with self._cv:
-                self.stats["pad_blocks"] += bucket - k
-                _hist_add(self.stats["bucket_hist"], BUCKET_BLOCK_BUCKETS, bucket)
+                _hist_add(self.stats["bucket_hist"], BUCKET_BLOCK_BUCKETS, k)
             _mark(marks)
             level = self.stats["backend_level"]
             if level == LEVEL_NUMPY:
@@ -562,22 +500,22 @@ class DeviceDispatcher:
                 t_dev = _monotonic()
                 try:
                     self._tpu_fault_hook()
-                    enc = self._fused_cm(all_blocks) if fusable else None
-                    was_fused = enc is not None
+                    if family == "reedsolomon":  # K1's weights are RS
+                        was_fused, fired = self._gate.admit(self._shape, d, p, n)
+                        if fired:
+                            with self._cv:
+                                self.stats["fused_failures"] += 1
                     copy_in = codec.as_tensor
-                    if enc is None:
-                        # don't pay fused kernel padding (16) on the bit-plane
-                        # path: trim back to the power-of-two bucket
-                        nb = self._bucket(k)
-                        if nb < all_blocks.shape[0]:
-                            all_blocks = all_blocks[:nb]
-                        if family == "cauchy":
-                            from ..ops.cauchy import encode_and_hash_cauchy as enc
-                        else:
-                            # the bit-plane route's copy in fills the data
-                            # rows of the batch's pitched shard slab
-                            enc = self._encode_and_hash
-                            copy_in = functools.partial(shard_slab, codec)
+                    if was_fused:
+                        def enc(_codec, data):
+                            return fused_cuda.fused_encode_hash(data, d, p)
+                    elif family == "cauchy":
+                        from ..ops.cauchy import encode_and_hash_cauchy as enc
+                    else:
+                        # the bit-plane route's copy in fills the data
+                        # rows of the batch's pitched shard slab
+                        enc = self._encode_and_hash
+                        copy_in = functools.partial(shard_slab, codec)
                     # the device phases: the copy in, its end, the
                     # launches' return, the copies out's end. The copy to
                     # host is the device sync point: execute + D2H land
@@ -587,23 +525,21 @@ class DeviceDispatcher:
                     _mark(dev_marks)
                     parity, digests = enc(codec, data)
                     _mark(dev_marks)
-                    parity = to_numpy(parity)[:k]
-                    digests = to_numpy(digests)[:k]
+                    parity = to_numpy(parity)
+                    digests = to_numpy(digests)
                     _mark(dev_marks)
                     if was_fused:
-                        self._fused_backoff = 8  # healthy again: reset the backoff
+                        self._gate.succeeded()
                         with self._cv:
                             self.stats["fused"] += 1
-                    shards = np.concatenate(
-                        [all_blocks[:k], parity], axis=1
-                    )  # [B, t, n]
+                    shards = np.concatenate([all_blocks, parity], axis=1)  # [B, t, n]
                     self._device_fault_streak = 0
                     # gauge semantics: the bit-plane rung is a DEGRADATION signal only
                     # when the fused rung is faulted out (cooldown); a
-                    # benign fused skip (unsupported shape, big bucket,
+                    # benign fused skip (unsupported shape,
                     # MINIO_TPU_FUSED_CM=0, cauchy family) reads healthy
                     with self._cv:
-                        if self._fused_cooldown > 0:
+                        if self._gate.cooldown > 0:
                             self.stats["backend_level"] = LEVEL_UNFUSED
                         else:
                             self.stats["backend_level"] = LEVEL_FUSED
@@ -618,7 +554,7 @@ class DeviceDispatcher:
                     shards = None
                 device_s = _monotonic() - t_dev
             if shards is None:
-                shards, digests = self._encode_numpy(all_blocks[:k], family)
+                shards, digests = self._encode_numpy(all_blocks, family)
                 with self._cv:
                     self.stats["numpy_blocks"] += k
                 route = "numpy"
@@ -630,7 +566,7 @@ class DeviceDispatcher:
             from ..erasure.coder import family_stats_add
 
             family_stats_add(family, "encode_blocks", k)
-            occupancy = 100.0 * k / max(all_blocks.shape[0], 1)
+            occupancy = 100.0  # a batch goes to the card at its own size
             with self._cv:
                 self.stats["dispatches"] += 1
                 self.stats["blocks"] += k
@@ -675,7 +611,7 @@ class DeviceDispatcher:
                     "hostNs": int(host_s * 1e9),
                     "queueWaitMaxNs": int(max_wait * 1e9),
                     "blocks": k,
-                    "bucket": int(all_blocks.shape[0]),
+                    "bucket": k,
                     "occupancyPct": round(occupancy, 1),
                     "fused": was_fused,
                     "family": family,

@@ -93,7 +93,7 @@ def test_hostsync_ignores_torch_syncs_off_the_hot_path(expr):
 
 @pytest.mark.parametrize("relpath,fn", [
     ("parallel/dispatcher.py", "_dispatch_group"),
-    ("parallel/dispatcher.py", "_fused_cm"),
+    ("parallel/dispatcher.py", "_probe_device"),
     ("ops/bitrot_torch.py", "_try_fused_decode"),
     ("ops/bitrot_torch.py", "to_numpy"),
     ("ops/rs_torch.py", "encode_data"),

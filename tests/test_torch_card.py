@@ -173,9 +173,9 @@ def test_cuda_hash_both_read_paths(n):
 def test_cuda_k1_aligned_matches_plain(d, p, b):
     """K1 encode at n = 131,072 on fresh (16-byte aligned) tensors takes
     the aligned read path and matches ``fused_plain`` byte for byte. The
-    kernel is launched below the wrapper where the reference's routing
-    gate (``supports``: d <= 8, B a multiple of 16) would refuse the shape;
-    the kernel itself takes any."""
+    kernel is launched below the wrapper where the routing gate
+    (``supports``: d <= 8) would refuse the shape; the kernel itself takes
+    any."""
     n = 131072
     rng = np.random.default_rng(100 * d + b)
     data = torch.from_numpy(rng.integers(0, 256, size=(b, d, n), dtype=np.uint8))
@@ -212,6 +212,24 @@ def test_cuda_k1_misaligned_view_takes_generic_path():
     assert torch.equal(gp, ap) and torch.equal(gd, ad)
     wp, wd = fused_cuda.fused_plain(host, rs.get_codec(d, p).parity_matrix)
     assert torch.equal(ad.cpu(), wd) and torch.equal(ap.cpu(), wp)
+
+
+def test_cuda_dispatcher_launches_k1_at_the_batch_size():
+    """Three blocks at 8+8 go to K1 as one launch at B = 3 (no pad), and
+    the shards and digests are the numpy codec's."""
+    from minio_tpu_torch.parallel.dispatcher import DeviceDispatcher
+
+    d, p, k, n = 8, 8, 3, 131072
+    blocks = np.random.default_rng(3).integers(0, 256, size=(k, d, n), dtype=np.uint8)
+    disp = DeviceDispatcher(rs_torch.get_torch_codec(d, p, "cuda"), n, window_s=0.05)
+    key = ("encode", k, d, p, n)
+    before = fused_cuda.launch_shapes[key]
+    shards, digests = disp.submit(blocks).result(timeout=120)
+    assert fused_cuda.launch_shapes[key] == before + 1
+    want_shards, want_digests = disp._encode_numpy(blocks)
+    assert np.array_equal(shards, want_shards) and np.array_equal(digests, want_digests)
+    st = disp.stats_snapshot()
+    assert st["fused"] == 1 and st["pad_blocks"] == 0
 
 
 # -- EC:4's route: the batch's shards in one slab at a 32-byte pitch ----------
@@ -267,7 +285,7 @@ def test_cuda_bitplane_route_serves_from_the_slab(b, n):
 
     d, p = EC4
     codec = rs_torch.get_torch_codec(d, p, "cuda")
-    assert not fused_cuda.supports(d, p, 16, n)
+    assert not fused_cuda.supports(d, p, n)
     blocks = np.random.default_rng(b + n).integers(0, 256, size=(b, d, n), dtype=np.uint8)
     prev = obs.publisher()
     pub = TracePubSub(ring=obs.SpanRing(1024))

@@ -104,7 +104,7 @@ def test_bitplane_route_stamps_the_device_phases(ring, b, monkeypatch):
     from minio_tpu_torch.ops import bitrot_torch, fused_cuda, rs_torch
     from minio_tpu_torch.parallel import dispatcher
 
-    assert not fused_cuda.supports(D, P, 16, N)  # so the bit-plane route serves
+    assert not fused_cuda.supports(D, P, N)  # so the bit-plane route serves
     slabs, encoded = [], []
     real_slab, real_enc = dispatcher.shard_slab, bitrot_torch.encode_and_hash
 
@@ -128,9 +128,9 @@ def test_bitplane_route_stamps_the_device_phases(ring, b, monkeypatch):
     # and the launches took that slab
     (got,) = slabs
     assert encoded == [got]
-    assert got.rows.shape == ({1: 1, 3: 4, 4: 4}[b], D + P, bitrot_torch.pitch(N))
-    # B = 3 pads to the power-of-two bucket of 4
-    assert disp.stats["pad_blocks"] == {1: 0, 3: 1, 4: 0}[b]
+    assert got.rows.shape == (b, D + P, bitrot_torch.pitch(N))
+    # the slab holds the batch's own b blocks: no pad
+    assert disp.stats["pad_blocks"] == 0
     assert disp.stats["numpy_blocks"] == 0 and disp.stats["fused"] == 0
     # every drive's shard file: the digest, then the shard
     for j, obj in enumerate(objects):

@@ -80,29 +80,87 @@ def test_finalization_matches_numpy_golden():
 
 
 @pytest.mark.parametrize(
-    "d,p,batch,n,ok",
+    "d,p,n,ok",
     [
-        (8, 8, 16, 131072, True),
-        (8, 8, 192, 131072, True),
-        (4, 2, 32, 1024, True),
-        (8, 1, 16, 1024, True),
-        (12, 4, 16, 87382, False),   # EC 12+4 keeps the bit-plane + K2 route
-        (9, 4, 16, 1024, False),
-        (8, 9, 16, 1024, False),
-        (8, 0, 16, 1024, False),
-        (8, 8, 8, 1024, False),      # batch below the floor
-        (8, 8, 24, 1024, False),     # batch not a multiple of 16
-        (8, 8, 16, 1000, False),     # n not a multiple of 1024
-        (8, 8, 16, 0, False),
+        (8, 8, 131072, True),
+        (4, 2, 1024, True),
+        (8, 1, 1024, True),
+        (12, 4, 87382, False),   # EC 12+4 keeps the bit-plane + K2 route
+        (9, 4, 1024, False),
+        (8, 9, 1024, False),
+        (8, 0, 1024, False),
+        (8, 8, 1000, False),     # n not a multiple of 1024
+        (8, 8, 0, False),
     ],
 )
-def test_supports_gate(d, p, batch, n, ok):
-    assert fused_cuda.supports(d, p, batch, n) is ok
+def test_supports_gate(d, p, n, ok):
+    assert fused_cuda.supports(d, p, n) is ok
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 15, 17, 24])
+def test_dispatcher_encodes_a_batch_at_its_own_size(k):
+    """The dispatcher hands K1 the batch's own k blocks (no pad to a floor
+    or a power of two): the wrapper sees B = k, and the parity and digests
+    are the numpy codec's and the numpy HighwayHash's."""
+    codec = rs_torch.get_torch_codec(D, P)
+    disp = DeviceDispatcher(codec, N)
+    seen = []
+    real = fused_cuda.fused_encode_hash
+
+    def spy(data, d, p):
+        seen.append(tuple(data.shape))
+        return real(data, d, p)
+
+    blocks = np.random.default_rng(k).integers(0, 256, size=(k, D, N), dtype=np.uint8)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fused_cuda, "fused_encode_hash", spy)
+        shards, digests = disp.encode(blocks)
+    assert seen == [(k, D, N)]
+    assert shards.shape == (k, D + P, N) and digests.shape == (k, D + P, 32)
+    _check_encoded(codec, blocks, shards, digests)
+    st = disp.stats_snapshot()
+    assert st["fused"] == st["dispatches"] == 1 and st["pad_blocks"] == 0
+    assert st["blocks"] == k and st["arena_direct"] == 1
+
+
+@pytest.mark.parametrize("family,d,p,n,route", [
+    ("reedsolomon", 8, 8, 131072, "fused"),
+    ("reedsolomon", 12, 4, 87382, "bitplane"),
+    ("reedsolomon", 8, 8, 1000, "bitplane"),
+    ("cauchy", 8, 8, 131072, "cauchy"),
+])
+def test_dispatcher_route_by_shape(monkeypatch, family, d, p, n, route):
+    """The route the dispatcher takes for a shape: K1 where ``supports``
+    holds, the bit-plane product + K2 where it does not (d > 8, n not a
+    multiple of 1,024), the cauchy family's own for a cauchy codec. Each
+    route's encoder is replaced by a recorder, so no hash runs."""
+    from minio_tpu_torch.ops import cauchy
+
+    taken = []
+
+    def recorder(name, digest_shape):
+        def enc(*args):
+            taken.append(name)
+            return (torch.zeros((1, p, n), dtype=torch.uint8),
+                    torch.zeros((1, d + p, *digest_shape), dtype=torch.uint8))
+        return enc
+
+    monkeypatch.setattr(fused_cuda, "fused_encode_hash", recorder("fused", (32,)))
+    monkeypatch.setattr(cauchy, "encode_and_hash_cauchy", recorder("cauchy", (2, 32)))
+    disp = DeviceDispatcher(rs_torch.get_torch_codec(d, p), n)
+    disp._encode_and_hash = recorder("bitplane", (32,))
+    codec = cauchy.get_torch_codec(d, p) if family == "cauchy" else None
+    disp.submit(np.zeros((1, d, n), dtype=np.uint8), codec=codec).result(timeout=60)
+    assert taken == [route]
+    st = disp.stats_snapshot()
+    assert st["fused"] == (route == "fused") and st["numpy_blocks"] == 0
 
 
 def test_wrapper_rejects_unsupported_shapes():
     with pytest.raises(ValueError):
-        fused_cuda.fused_encode_hash(torch.zeros((8, D, N), dtype=torch.uint8), D, P)
+        fused_cuda.fused_encode_hash(torch.zeros((8, 9, N), dtype=torch.uint8), 9, P)
+    with pytest.raises(ValueError):
+        fused_cuda.fused_encode_hash(torch.zeros((0, D, N), dtype=torch.uint8), D, P)
     with pytest.raises(ValueError):
         fused_cuda.fused_encode_hash(torch.zeros((B, D, N), dtype=torch.int32), D, P)
 
@@ -120,7 +178,7 @@ def test_gf_tables_are_products():
 
 
 def test_dispatcher_routes_8_8_through_fused(monkeypatch):
-    """Few blocks pad to the fused kernel's floor of 16; results match the
+    """Three blocks go to the fused kernel as three; results match the
     numpy codec and the stats keys count one fused dispatch."""
     codec = rs_torch.get_torch_codec(D, P)
     disp = DeviceDispatcher(codec, N)
@@ -135,7 +193,7 @@ def test_dispatcher_routes_8_8_through_fused(monkeypatch):
         assert np.array_equal(digests[b], hash256_batch_numpy(full))
     st = disp.stats_snapshot()
     assert st["fused"] == st["dispatches"] == 1
-    assert st["pad_blocks"] == 13 and st["fused_failures"] == 0
+    assert st["pad_blocks"] == 0 and st["fused_failures"] == 0
     assert st["numpy_blocks"] == 0 and st["device_faults"] == 0
 
 
@@ -207,8 +265,7 @@ def test_fused_decode_kernel_error_reaches_caller(monkeypatch):
 def test_fused_decode_injected_fault_takes_bitplane_path(monkeypatch, encoded):
     from minio_tpu_torch.fault import registry
 
-    monkeypatch.setattr(bitrot_torch, "_fused_dec_cooldown", 0)
-    monkeypatch.setattr(bitrot_torch, "_fused_dec_backoff", 8)
+    bitrot_torch._decode_gate.cache_clear()  # a fresh gate: no cooldown left over
     data, par, dig = encoded
     full = np.concatenate([data, par], axis=1)
     missing, present = PATTERNS[1]

@@ -34,12 +34,13 @@ from minio_tpu_torch.ops import _build, fused_cuda, gf_cuda, rs_cuda
 
 # (B, k, r, n) of every GF-core launch on the smoke's main path: K3 on the
 # cauchy composites (16x16 at h = 65,536; 8x24 at h = 43,691), K1 encode
-# at 8+8, K1 decode at B=16 with 1-8 rows rebuilt, the device heal at B=64
+# at 8+8 (B=1 a lone PUT's block), K1 decode at B=8 and 16 with 1-8 rows
+# rebuilt, the device heal at B=64
 MAIN_PATH = [
     (256, 16, 16, 65536), (128, 16, 16, 65536), (64, 16, 16, 65536), (16, 16, 16, 65536),
     (256, 24, 8, 43691), (64, 24, 8, 43691),
-    (256, 8, 8, 131072), (128, 8, 8, 131072), (64, 8, 8, 131072),
-    *[(16, 8, m, 131072) for m in range(1, 9)],
+    (256, 8, 8, 131072), (128, 8, 8, 131072), (64, 8, 8, 131072), (1, 8, 8, 131072),
+    *[(b, 8, m, 131072) for b in (8, 16) for m in range(1, 9)],
 ]
 # odd lengths, tails shorter than C, empty inputs, more than 16 output rows
 EDGES = [(b, k, r, n) for b in (0, 1, 3) for k, r in ((5, 3), (2, 30), (30, 2), (7, 17))

@@ -38,12 +38,13 @@ M32 = 0xFFFFFFFF
 
 # (rows, n) of every hash-core launch on the smoke's main path: K2 on the
 # RS 12+4 shards, the cauchy 8+8 / 12+4 sub-chunks, the single chain; K1
-# encode at B=256 / 64 (8+8), decode at B=16 with 1-8 shards lost, heal B=64
+# encode at B=256 / 64 / 1 (8+8), decode at B=8 and 16 with 1-8 shards
+# lost, heal B=64
 MAIN_PATH = [
     (1024, 87382), (4096, 87382), (8192, 65536), (2048, 65536), (512, 65536),
     (8192, 43691), (2048, 43691), (1, 131072),
-    (256 * 16, 131072), (64 * 16, 131072),
-    *[(16 * (8 + m), 131072) for m in range(1, 9)],
+    (256 * 16, 131072), (64 * 16, 131072), (16, 131072),
+    *[(b * (8 + m), 131072) for b in (8, 16) for m in range(1, 9)],
 ]
 ODD_N = [0, 1, 31, 32, 33, 43691, 87382]
 
