@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # everything, as a deployment check
     python3 chip_smoke.py --kernels  # build + kernel-vs-plain only
+    python3 chip_smoke.py --gf       # build + the GF core's small-batch table only
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -197,9 +198,15 @@ Phases (any failure raises and the script exits non-zero):
    shards of one EC:4 block (n = 87,382), back to back and at the shard
    slab's 32-byte pitch (87,392), ns a round each; K3 at the
    8x24 composite, B=256, on rows at odd addresses (h = 43,691) and on
-   16-byte aligned rows (h = 43,696). With ``--kernels`` phases 2-10
-   are skipped and the main path's shapes are taken from
-   ``DEFAULT_SHAPES``.
+   16-byte aligned rows (h = 43,696). The GF core at the benchmark
+   cells' launches (``gf_small_batch``: K3 into EC:4's shard slab at
+   B = 1, 2, 4; K1's GF launch at 8+8, B = 1, 2) and at B = 16-256, each
+   on the plan the package picks and on the 256-thread plan without the
+   small-batch regime, byte for byte between the two, beside the byte
+   bound. With ``--kernels`` phases 2-10 are skipped and the main path's
+   shapes are taken from ``DEFAULT_SHAPES``; with ``--gf`` only the
+   build and ``gf_small_batch`` run (a package without the regime times
+   its own plan alone, so a parent checkout can run this script).
 
 Prints the dispatcher stats, one ``s3_phase`` JSON line (per-step
 seconds, bytes, launches and shapes, dispatcher stats, the scraped
@@ -723,10 +730,167 @@ def gf_waves(torch, mods, shapes: dict) -> list:
     return res
 
 
+# the GF core's launches in the benchmark's cells (K3 into EC:4's shard
+# slab, 12+4 at n = 87,382; K1's GF launch, 8+8 at n = 131,072), at the
+# few blocks a launch they carry; and at B = 16-256, where the plan must
+# not move: K1 encode, the slab, the cauchy composites (16x16 at
+# h = 65,536; 8x24 at h = 43,691, rows at odd addresses)
+GF_CELL_SHAPES = ([("slab", b, 12, 4, -(-MIB // 12)) for b in (1, 2, 4)]
+                  + [("k1", b, 8, 8, 131072) for b in (1, 2)])
+GF_LARGE_SHAPES = ([("k1", b, 8, 8, 131072) for b in (16, 64, 256)]
+                   + [("slab", b, 12, 4, -(-MIB // 12)) for b in (16, 64, 256)]
+                   + [("cauchy", b, 16, 16, 65536) for b in (16, 256)]
+                   + [("cauchy", b, 24, 8, -(-MIB // 12) // 2) for b in (64, 256)])
+
+
+def queued_ms(torch, fn, reps: int = 7, inner: int = 20) -> float:
+    """Median CUDA-event time of one fn() call, its ``inner`` calls queued
+    behind a device sleep so that they run back to back: for kernels of a
+    few microseconds, shorter than the host's submission of a call, which
+    ``cuda_ms`` would time instead."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # ~10 ms of device cycles: the host queues meanwhile
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
+def kernel_us(torch, fn, name: str, calls: int = 20):
+    """Median device duration in microseconds of the kernels whose name
+    holds ``name`` over ``calls`` calls of fn, from a torch.profiler trace
+    (what the benchmark's traced runs read); None where the trace has
+    none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    durs = [e["dur"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+            and name in e.get("name", "")]
+    return statistics.median(durs) if durs else None
+
+
+def gf_small_batch(torch, mods) -> list:
+    """The GF core at ``GF_CELL_SHAPES`` and ``GF_LARGE_SHAPES`` ((route,
+    B, k, r, n): k -> r rows of n bytes, the composite's for the cauchy
+    rows), CUDA-event medians of queued calls (``queued_ms``) and the
+    profiler's median kernel duration (``kernel_us``) on the plan the
+    package picks and, where its plan takes ``small``, on the 256-thread
+    plan without the small-batch regime; byte for byte between the two and against the
+    plain version at the first and last item. K3's routes go through
+    ``rs_cuda.gf_apply_cuda`` (the slab's rows at its 32-byte pitch, the
+    parity written in place; the cauchy a/b halves in place), K1's
+    through ``fused_cuda.gf_apply_only``."""
+    import contextlib
+    import functools
+    import inspect
+
+    import numpy as np
+
+    k3, fc, gc, rt, bt, ca = (mods[m] for m in ("k3", "fc", "gc", "rt", "bt", "cauchy"))
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    forced = "small" in inspect.signature(gc.plan).parameters
+
+    @contextlib.contextmanager
+    def k3_plan(small):
+        # rs_cuda reads gf_cuda.plan at each call
+        orig = gc.plan
+        if small is not None:
+            gc.plan = functools.partial(orig, small=small)
+        try:
+            yield
+        finally:
+            gc.plan = orig
+
+    res = []
+    for shape in GF_CELL_SHAPES + GF_LARGE_SHAPES:
+        route, b, k, r, n = shape
+        if route == "k1":
+            x = torch.randint(0, 256, (b, k, n), dtype=torch.uint8, device=dev, generator=g)
+            tables = fc._encode_tables(k, r, DEV)
+            m = mods["rs"].get_codec(k, r).parity_matrix
+            w = torch.from_numpy(rt.gf_matrix_to_bitplanes(m).astype(np.float32)).to(dev)
+
+            def run(small, x=x, tables=tables, r=r):
+                return (fc.gf_apply_only(x, tables, r, small=small) if small is not None
+                        else fc.gf_apply_only(x, tables, r))
+
+            def plain(i, x=x, w=w, r=r):
+                return rt.gf_apply_bits(w, x[i:i + 1], r)[0]
+        elif route == "slab":
+            codec = rt.get_torch_codec(k, r, DEV)
+            slab = bt.shard_slab(codec, torch.randint(0, 256, (b, k, n), dtype=torch.uint8,
+                                                      device=dev, generator=g))
+            wb = codec.w_encode
+
+            def run(small, slab=slab, wb=wb, r=r):
+                with k3_plan(small):
+                    k3.gf_apply_cuda(wb, slab.data, r, out=slab.parity)
+                return slab.parity
+
+            def plain(i, slab=slab, wb=wb, r=r):
+                return k3.gf_apply_plain(wb, slab.data[i:i + 1], r)[0]
+        else:  # the cauchy composite on [B, k/2, 2n] shards' a/b halves
+            wb = ca.get_torch_codec(k // 2, r // 2, DEV).w_composite
+            x = torch.randint(0, 256, (b, k // 2, 2 * n), dtype=torch.uint8, device=dev,
+                              generator=g)
+
+            def run(small, x=x, wb=wb, r=r):
+                with k3_plan(small):
+                    return k3.gf_apply_cuda(wb, x, r // 2, sub=2)
+
+            def plain(i, x=x, wb=wb, r=r):
+                return k3.gf_apply_plain(wb, x[i:i + 1], r // 2, sub=2)[0]
+        row = {"shape": f"{route} B={b} {k}->{r} n={n}",
+               "bound_ms": bound(b * k * n, b * r * n, 2 * b * r * k * n)[0]}
+        plans = {"plan": None, "wave_plan": False} if forced else {"plan": None}
+        outs = {}
+        for name, small in plans.items():
+            outs[name] = run(small).clone()
+            p = gc.plan(b, k, r, n, small=small) if small is not None else gc.plan(b, k, r, n)
+            row[name] = {"threads": p.threads, "grid": p.grid, "tiles": p.tiles,
+                         "ms": queued_ms(torch, lambda s=small: run(s)),
+                         "kernel_us": kernel_us(torch, lambda s=small: run(s), "gf_core_kernel")}
+        if forced and not torch.equal(outs["plan"], outs["wave_plan"]):
+            fail(f"GF core {row['shape']}: the small-batch and wave plans differ")
+        for i in (0, b - 1):
+            if not torch.equal(outs["plan"][i], plain(i)):
+                fail(f"GF core {row['shape']}: differs from the plain version at item {i}")
+        if forced:
+            row["wave_over_plan"] = row["wave_plan"]["ms"] / row["plan"]["ms"]
+        print(f"gf_small_batch {row['shape']}: plan {row['plan']['threads']}x"
+              f"{row['plan']['grid']} ms={row['plan']['ms']:.5f}"
+              f" kernel_us={row['plan']['kernel_us']}"
+              + (f" wave_plan ms={row['wave_plan']['ms']:.5f}"
+                 f" kernel_us={row['wave_plan']['kernel_us']}" if forced else "")
+              + f" bound_ms={row['bound_ms']:.5f}", flush=True)
+        res.append(row)
+    return res
+
+
 def gf_core_registers(logs: dict) -> dict:
     """Registers and spills of each GF core instantiation (gf_core_kernel<E,
-    C>) in each library, read from ptxas's verbose output of this run's
-    build; None for a library that this process did not build."""
+    C, Small>; Small absent in a package without the small-batch regime)
+    in each library, read from ptxas's verbose output of this run's build;
+    None for a library that this process did not build."""
     import re
 
     res = {}
@@ -738,11 +902,12 @@ def gf_core_registers(logs: dict) -> dict:
         res[lib] = []
         for chunk in log.split("Compiling entry function '")[1:]:
             name = chunk.split("'", 1)[0]
-            ec = re.search(r"gf_core_kernelILi(\d+)ELi(\d+)E", name)
+            ec = re.search(r"gf_core_kernelILi(\d+)ELi(\d+)E(?:Lb(\d)E)?", name)
             regs = re.search(r"Used (\d+) registers", chunk)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
             if ec and regs:
                 res[lib].append({"entry": int(ec.group(1)), "cols": int(ec.group(2)),
+                                 "small": ec.group(3) == "1",
                                  "registers": int(regs.group(1)),
                                  "spill_stores": int(spill.group(1)) if spill else None,
                                  "spill_loads": int(spill.group(2)) if spill else None})
@@ -3347,6 +3512,12 @@ def main(argv: list[str]) -> int:
             "rs": rs, "rt": rs_torch, "gf": gf, "hh": highwayhash, "k3": rs_cuda,
             "cauchy": cauchy, "gc": gf_cuda}
     obj = cph = dur = s3 = clu = gw = san = gr = su = None
+    if "--gf" in argv:
+        print(json.dumps({"gf_small_batch": gf_small_batch(torch, mods)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                  "count": torch.cuda.device_count()}}))
+        return 0
     if "--kernels" in argv:
         # no main path run: the shapes it would give, launches not measured
         shapes = {k: dict.fromkeys(v) for k, v in DEFAULT_SHAPES.items()}
@@ -3471,13 +3642,14 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"gf_core_registers": regs}))
     for lib, insts in regs.items():
         for i in insts or ():
-            if i["registers"] > gf_cuda.registers(i["entry"]) or i["spill_stores"] \
-                    or i["spill_loads"]:
-                fail(f"{lib}: gf_core_kernel<{i['entry']}, {i['cols']}> takes {i['registers']}"
-                     f" registers (plan: {gf_cuda.registers(i['entry'])}) and spills"
+            cap = gf_cuda.registers(i["entry"], i["small"])
+            if i["registers"] > cap or i["spill_stores"] or i["spill_loads"]:
+                fail(f"{lib}: gf_core_kernel<{i['entry']}, {i['cols']}, {i['small']}> takes"
+                     f" {i['registers']} registers (plan: {cap}) and spills"
                      f" {i['spill_stores']}/{i['spill_loads']} bytes")
     print(json.dumps({"gf_conflict_ratio": gf_conflict_ratio(torch, mods, shapes)}))
     print(json.dumps({"gf_waves": gf_waves(torch, mods, shapes)}))
+    print(json.dumps({"gf_small_batch": gf_small_batch(torch, mods)}))
     print(json.dumps({"sass_per_round": {
         name: sass_per_round(os.path.join(_build.BUILD, f"lib{name}.so"), rows)
         for name, rows in (("hh_chain", "ContigRows"), ("fused_encode_hash", "FusedRows"))}}))

@@ -56,17 +56,17 @@ struct FusedRows {
 
 // data: [B, d, n] u8; tables: [d][256][E] u8 (byte i of entry (j, x) =
 // gf_mul(m[i][j], x), zero for i >= p: ops/gf_cuda.wide_tables); out:
-// [B, p, n] u8. threads, grid: the GF core's launch plan
+// [B, p, n] u8. threads, grid, row_groups: the GF core's launch plan
 // (ops/gf_cuda.plan). The GF launch alone.
 extern "C" int fused_gf_apply(const void* data, int64_t B, int d, int p, int64_t n,
                               const void* tables, void* out, int64_t threads, int64_t grid,
-                              void* stream) {
+                              int64_t row_groups, void* stream) {
   const GfJob job = {(const uint8_t*)data, d * n, (uint8_t*)out, p * n, B, n, d, p,
-                     (const uint8_t*)tables, nullptr};
-  return gf_core_launch(job, threads, grid, (cudaStream_t)stream);
+                     (const uint8_t*)tables, nullptr, 0};
+  return gf_core_launch(job, threads, grid, row_groups, (cudaStream_t)stream);
 }
 
-// As fused_gf_apply (its plan: gf_threads, gf_grid), then digests:
+// As fused_gf_apply (its plan: gf_threads, gf_grid, gf_row_groups), then digests:
 // [B, d+p, 32] u8 of every shard. aligned: non-zero when every shard's
 // start is 16-byte aligned (ops/bitrot_cuda.aligned). msgs_per_cta ..
 // smem_bytes: the hash core's launch plan for B*(d+p) messages of n bytes
@@ -75,11 +75,13 @@ extern "C" int fused_gf_apply(const void* data, int64_t B, int d, int p, int64_t
 extern "C" int fused_encode_hash(const void* data, int64_t B, int d, int p, int64_t n,
                                  const void* tables, uint64_t k0, uint64_t k1, uint64_t k2,
                                  uint64_t k3, void* out, void* digests, int64_t gf_threads,
-                                 int64_t gf_grid, int64_t aligned, int64_t msgs_per_cta,
+                                 int64_t gf_grid, int64_t gf_row_groups, int64_t aligned,
+                                 int64_t msgs_per_cta,
                                  int64_t stages, int64_t stage_bytes, int64_t slot_bytes,
                                  int64_t smem_bytes, void* stream) {
   if (B <= 0) return 0;
-  const int e = fused_gf_apply(data, B, d, p, n, tables, out, gf_threads, gf_grid, stream);
+  const int e = fused_gf_apply(data, B, d, p, n, tables, out, gf_threads, gf_grid,
+                               gf_row_groups, stream);
   if (e != 0) return e;
   const FusedRows rows = {(const uint8_t*)data, (const uint8_t*)out, d, p, n};
   return hh_ring_launch(rows, B * (d + p), n, k0, k1, k2, k3, (uint8_t*)digests, aligned,

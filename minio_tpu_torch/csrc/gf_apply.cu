@@ -37,12 +37,13 @@
 // offs[j] within it (j < k); out likewise with out_bs and offs[k + i]
 // (i < r); each row n bytes. tables: [k][256][E*G] u8 on the device
 // (ops/gf_cuda.wide_tables); offs: [k + r] int64 on the device. threads,
-// grid: the launch plan (ops/gf_cuda.plan). Input and output must not
-// overlap. Returns the cudaError_t of the launch (or of its checks).
+// grid, row_groups: the launch plan (ops/gf_cuda.plan). Input and output
+// must not overlap. Returns the cudaError_t of the launch (or of its
+// checks).
 extern "C" int gf_apply(const void* in, int64_t in_bs, void* out, int64_t out_bs, int64_t B,
                         int k, int r, int64_t n, const void* tables, const void* offs,
-                        int64_t threads, int64_t grid, void* stream) {
+                        int64_t threads, int64_t grid, int64_t row_groups, void* stream) {
   const GfJob job = {(const uint8_t*)in, in_bs, (uint8_t*)out, out_bs, B, n, k, r,
-                     (const uint8_t*)tables, (const int64_t*)offs};
-  return gf_core_launch(job, threads, grid, (cudaStream_t)stream);
+                     (const uint8_t*)tables, (const int64_t*)offs, 0};
+  return gf_core_launch(job, threads, grid, row_groups, (cudaStream_t)stream);
 }

@@ -54,7 +54,9 @@
 //  - Registers. The unrolled lookups keep C entries in flight, so a
 //    thread takes 80 registers at E = 16 (three blocks of 256 an SM) and
 //    64 otherwise (four). No instantiation spills within those caps; 64
-//    at E = 16, and 16 columns at E = 8, did.
+//    at E = 16, and 16 columns at E = 8, did. The small-batch regime is
+//    its own instantiation (Small), capped at 128 (two blocks of 256),
+//    which holds its rows' loads in flight.
 //  - Blocks that stride over (batch item, column tile) tiles, each
 //    staging its tables once with one TMA bulk copy (cp.async.bulk on an
 //    mbarrier, hh_core.cuh's helpers), which lands while its first tile's
@@ -62,15 +64,27 @@
 //    of resident blocks where rows split into whole tiles, and several
 //    where rows end in a partial tile, so that the block scheduler
 //    spreads the light tiles.
+//  - Two regimes (ops/gf_cuda.plan). The wave regime, where tiles of
+//    GF_THREADS fill the SMs: each thread loads its next input row one
+//    step ahead of the current row's lookups. The small-batch regime,
+//    where they would leave SMs idle (one 1 MiB block is 22 of them at
+//    EC 12+4): narrower tiles spread the launch over the card, and a
+//    tile's k rows are split over row groups of warps, each loading its
+//    few rows at once, whose accumulators meet in shared memory: no warp
+//    walks all k rows, and a tile waits on one memory latency, not k in
+//    series. On an H100 one warp's chain of lookups takes ~430 cycles a
+//    row, so a lone warp over 12 rows outlasts the whole launch's work
+//    (PERF.md).
 //  - Any row start (K3's rows are addressed by offsets, so the cauchy a/b
 //    halves are read and written in place, at odd addresses at EC 12+4).
 //    A row's start modulo C is the same for all its columns, so the
 //    branch on it does not diverge. An unaligned thread's C bytes are two
 //    aligned C-byte loads, both holding a byte of the row, funnel-shifted;
 //    the last columns of a row are loaded and stored byte by byte.
-// The launch's threads and grid come from ops/gf_cuda.plan; the entry
-// width, columns a thread, groups and dynamic shared memory follow from k
-// and r here (gf_core_launch), as they do in ops/gf_cuda.py.
+// The launch's threads, grid and row groups come from ops/gf_cuda.plan;
+// the entry width, columns a thread, output row groups and dynamic shared
+// memory follow from k, r and the plan here (gf_core_launch), as they do
+// in ops/gf_cuda.py.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,15 +95,17 @@
 
 #define GF_THREADS 256      // the most threads a block
 // blocks of GF_THREADS an SM holds at entry width E: 80 registers a
-// thread at E = 16, else 64 (ops/gf_cuda.registers)
-#define GF_MIN_BLOCKS(E) ((E) == 16 ? 3 : 4)
+// thread at E = 16, else 64 (ops/gf_cuda.registers); in the small-batch
+// regime two, 128 registers a thread
+#define GF_MIN_BLOCKS(E, Small) ((Small) ? 2 : (E) == 16 ? 3 : 4)
 #define GF_MAX_SMEM 232448  // 227 KiB a block
 
 // One apply: batch item b's input row j starts at in + b*in_bs + off[j]
 // (j < k), its output row i at out + b*out_bs + off[k + i] (i < r); every
 // row is n bytes. off: k + r int64 on the device, or null for rows back to
 // back (off[j] = j*n, off[k + i] = i*n). tables: [k][256][E*G] u8 on the
-// device, 16-byte aligned. Input and output must not overlap.
+// device, 16-byte aligned. Input and output must not overlap. row_groups:
+// the launch plan's (ops/gf_cuda.plan), set by gf_core_launch.
 struct GfJob {
   const uint8_t* in;
   int64_t in_bs;
@@ -99,6 +115,7 @@ struct GfJob {
   int k, r;
   const uint8_t* tables;
   const int64_t* off;
+  int row_groups;  // 0: the wave regime; else the small-batch regime's row groups
 };
 
 // x[i] = bytes 4(i+Q)+sh/8 .. of y, for the W words of an unaligned load
@@ -249,26 +266,111 @@ static __device__ __forceinline__ void gf_store_rows(const uint32_t (&acc)[C][E 
   }
 }
 
+#define GF_SPLIT_ROWS 2  // input rows a warp loads at once in the small-batch regime
+
+// Shared memory from the tables on: the k + r row offsets (int64), then,
+// in the small-batch regime, at a 16-byte boundary, the accumulators of
+// row groups 1.. (ops/gf_cuda.split_smem_bytes)
+static __host__ __device__ __forceinline__ int64_t gf_parts_at(int64_t tab_bytes, int k, int r) {
+  return tab_bytes + ((8 * (int64_t)(k + r) + 15) & ~(int64_t)15);
+}
+
+// The small-batch regime: the block's threads are row_groups groups of
+// whole warps; a tile is one group's columns (C a thread) of one batch
+// item, and group q applies rows q, q + row_groups, ... of it, loading
+// GF_SPLIT_ROWS of them at once, so that a tile waits on one memory
+// latency, not k in series. Groups 1.. leave their accumulators in
+// shared memory, and group 0 XORs them into its own and stores the
+// tile's output rows. n and the tiles fit 31 bits (gf_core_launch).
 template <int E, int C>
-__global__ void __launch_bounds__(GF_THREADS, GF_MIN_BLOCKS(E))
-gf_core_kernel(const GfJob job, const int groups) {
-  extern __shared__ __align__(128) uint8_t smem[];  // tables, then k + r row offsets
-  __shared__ __align__(8) uint64_t bar_word;
+static __device__ __forceinline__ void gf_split_tiles(const GfJob& job, int groups,
+                                                      uint8_t* smem, const int64_t* s_off,
+                                                      uint32_t tab_bytes, uint32_t bar) {
+  constexpr int V = C * E / 16;  // a thread's accumulators as uint4
+  const int k = job.k, r = job.r, tid = threadIdx.x, rgs = job.row_groups;
+  const int stride = E * groups;
+  const int lanes = (int)blockDim.x / rgs;            // threads a row group
+  const int rg = tid / lanes, ct = tid - rg * lanes;  // its row group and column thread
+  const int n = (int)job.n, span = lanes * C;
+  const int per_item = (n + span - 1) / span, tiles = (int)job.B * per_item;
+  uint4* part = reinterpret_cast<uint4*>(smem + gf_parts_at(tab_bytes, k, r));  // [rgs-1][V][lanes]
+  bool ready = false;  // the tables have landed
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int b = tile / per_item;
+    const int col = (tile - b * per_item) * span + ct * C, rem = n - col;
+    const uint8_t* src = job.in + b * job.in_bs + col;
+    for (int g = 0; g < groups; ++g) {
+      uint32_t acc[C][E / 4];
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int q = 0; q < E / 4; ++q) acc[c][q] = 0u;
+      if (rem > 0) {
+        for (int j0 = rg; j0 < k; j0 += GF_SPLIT_ROWS * rgs) {
+          uint32_t y[GF_SPLIT_ROWS][C / 2];
+          unsigned m[GF_SPLIT_ROWS];
+#pragma unroll
+          for (int i = 0; i < GF_SPLIT_ROWS; ++i)
+            if (j0 + i * rgs < k) m[i] = gf_fetch<C>(src + s_off[j0 + i * rgs], rem, y[i]);
+          if (!ready) {
+            mbar_wait(bar, 0);
+            ready = true;
+          }
+#pragma unroll
+          for (int i = 0; i < GF_SPLIT_ROWS; ++i) {
+            const int j = j0 + i * rgs;
+            if (j >= k) break;
+            uint32_t x[C / 4];
+            gf_align<C>(y[i], m[i], x);
+            const uint8_t* t = smem + g * E + j * 256 * stride;
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              gf_xor_entry<E>(acc[c], t + __byte_perm(x[c >> 2], 0, 0x4440 | (c & 3)) * stride);
+          }
+        }
+      }
+      if (rgs > 1) {
+        if (g) __syncthreads();  // group 0 has read the last output group's partials
+        if (rg) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            uint32_t w[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) w[i] = acc[(4 * v + i) / (E / 4)][(4 * v + i) % (E / 4)];
+            part[((rg - 1) * V + v) * lanes + ct] = make_uint4(w[0], w[1], w[2], w[3]);
+          }
+        }
+        __syncthreads();
+        if (!rg) {
+          for (int p = 0; p < rgs - 1; ++p) {
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              const uint4 u = part[(p * V + v) * lanes + ct];
+              const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[(4 * v + i) / (E / 4)][(4 * v + i) % (E / 4)] ^= w[i];
+            }
+          }
+        }
+      }
+      if (!rg && rem > 0)
+        gf_store_rows<E, C>(acc, job.out + b * job.out_bs + col, s_off + k + g * E,
+                            min(E, r - g * E), rem);
+    }
+    if (rgs > 1) __syncthreads();  // the partials are free
+  }
+  if (!ready) mbar_wait(bar, 0);  // no block retires with its table copy in flight
+}
+
+// The wave regime: blocks of GF_THREADS stride over the tiles, each
+// thread loading its next input row one step ahead of the current row's
+// lookups.
+template <int E, int C>
+static __device__ __forceinline__ void gf_wave_tiles(const GfJob& job, int groups,
+                                                     const uint8_t* smem, const int64_t* s_off,
+                                                     uint32_t bar) {
   const int k = job.k, r = job.r, tid = threadIdx.x;
   const int stride = E * groups;  // bytes of one table entry
-  const uint32_t tab_bytes = (uint32_t)k * 256u * (uint32_t)stride;
-  int64_t* s_off = reinterpret_cast<int64_t*>(smem + tab_bytes);
-  const uint32_t bar = (uint32_t)__cvta_generic_to_shared(&bar_word);
-  if (tid == 0) {
-    mbar_init(bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    mbar_arrive_expect_tx(bar, tab_bytes);
-    bulk_g2s((uint32_t)__cvta_generic_to_shared(smem), job.tables, tab_bytes, bar);
-  }
-  for (int i = tid; i < k + r; i += blockDim.x)
-    s_off[i] = job.off ? job.off[i] : (int64_t)(i < k ? i : i - k) * job.n;
-  __syncthreads();
-
   const int64_t span = (int64_t)blockDim.x * C;  // columns a tile
   const int64_t per_item = (job.n + span - 1) / span;
   const int64_t tiles = job.B * per_item;
@@ -309,7 +411,35 @@ gf_core_kernel(const GfJob job, const int groups) {
   if (!ready) mbar_wait(bar, 0);  // no block retires with its table copy in flight
 }
 
-template <int E, int C>
+// Small: the small-batch regime (job.row_groups > 0), else the wave regime
+template <int E, int C, bool Small>
+__global__ void __launch_bounds__(GF_THREADS, GF_MIN_BLOCKS(E, Small))
+gf_core_kernel(const GfJob job, const int groups) {
+  extern __shared__ __align__(128) uint8_t smem[];  // tables, offsets, partials (small)
+  __shared__ __align__(8) uint64_t bar_word;
+  const int k = job.k, r = job.r, tid = threadIdx.x;
+  const int stride = E * groups;  // bytes of one table entry
+  const uint32_t tab_bytes = (uint32_t)k * 256u * (uint32_t)stride;
+  int64_t* s_off = reinterpret_cast<int64_t*>(smem + tab_bytes);
+  const uint32_t bar = (uint32_t)__cvta_generic_to_shared(&bar_word);
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_arrive_expect_tx(bar, tab_bytes);
+    bulk_g2s((uint32_t)__cvta_generic_to_shared(smem), job.tables, tab_bytes, bar);
+  }
+  for (int i = tid; i < k + r; i += blockDim.x)
+    s_off[i] = job.off ? job.off[i] : (int64_t)(i < k ? i : i - k) * job.n;
+  __syncthreads();
+
+  if constexpr (Small) {
+    gf_split_tiles<E, C>(job, groups, smem, s_off, tab_bytes, bar);
+  } else {
+    gf_wave_tiles<E, C>(job, groups, smem, s_off, bar);
+  }
+}
+
+template <int E, int C, bool Small>
 static int gf_core_launch_ec(const GfJob& job, int groups, int threads, int grid, int smem,
                              cudaStream_t stream) {
   // the shared-memory limit is the kernel's, not the launch's: another
@@ -318,30 +448,51 @@ static int gf_core_launch_ec(const GfJob& job, int groups, int threads, int grid
   static std::mutex mu;
   const std::lock_guard<std::mutex> hold(mu);
   const cudaError_t e = cudaFuncSetAttribute(
-      gf_core_kernel<E, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      gf_core_kernel<E, C, Small>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  gf_core_kernel<E, C><<<(unsigned)grid, (unsigned)threads, (size_t)smem, stream>>>(job, groups);
+  gf_core_kernel<E, C, Small>
+      <<<(unsigned)grid, (unsigned)threads, (size_t)smem, stream>>>(job, groups);
   return (int)cudaGetLastError();
 }
 
-// Launches the job on `stream` with the plan's threads and grid
-// (ops/gf_cuda.plan). The entry width E (16 above 8 output rows, 8 above
-// 4, else 4), the columns a thread (16 at E = 4, else 8), the row groups
-// (ceil(r / 16) above 16 rows) and the dynamic shared memory (k*256*E*G
-// table bytes, then k + r int64 offsets) follow from k and r. Returns the
-// cudaError_t (0 on success); B <= 0 or n <= 0 launches nothing.
-static int gf_core_launch(const GfJob& job, int64_t threads, int64_t grid,
+// Launches the job on `stream` with the plan's threads, grid and row
+// groups (ops/gf_cuda.plan; row_groups 0 is the wave regime, else the
+// small-batch regime's groups of threads / row_groups, a multiple of 32).
+// The entry width E (16 above 8 output rows, 8 above 4, else 4), the
+// columns a thread (16 at E = 4, else 8), the row groups of output rows
+// (ceil(r / 16) above 16 rows) and the dynamic shared memory follow from
+// k, r and the plan: k*256*E*G table bytes, then k + r int64 offsets,
+// then in the small-batch regime, at a 16-byte boundary,
+// (row_groups - 1)*threads/row_groups partial accumulators of C*E bytes.
+// Returns the cudaError_t (0 on success); B <= 0 or n <= 0 launches
+// nothing.
+static int gf_core_launch(GfJob job, int64_t threads, int64_t grid, int64_t row_groups,
                           cudaStream_t stream) {
   if (job.B <= 0 || job.n <= 0) return 0;
   if (job.k < 1 || job.r < 1 || threads < 32 || threads > GF_THREADS || threads % 32 ||
-      grid < 1 || grid > INT32_MAX || reinterpret_cast<uintptr_t>(job.tables) % 16)
+      grid < 1 || grid > INT32_MAX || reinterpret_cast<uintptr_t>(job.tables) % 16 ||
+      row_groups < 0 || (row_groups && (threads % (32 * row_groups))))
     return (int)cudaErrorInvalidValue;
   const int entry = job.r > 8 ? 16 : job.r > 4 ? 8 : 4;
   const int groups = job.r > 16 ? (job.r + 15) / 16 : 1;
-  const int64_t smem = (int64_t)job.k * 256 * entry * groups + 8 * (int64_t)(job.k + job.r);
+  const int cols = entry == 4 ? 16 : 8;
+  const int64_t tab = (int64_t)job.k * 256 * entry * groups;
+  int64_t smem = tab + 8 * (int64_t)(job.k + job.r);
+  if (row_groups) {
+    const int64_t lanes = threads / row_groups, span = lanes * cols;
+    if (job.n > INT32_MAX - span || job.B * ((job.n + span - 1) / span) > INT32_MAX)
+      return (int)cudaErrorInvalidValue;
+    smem = gf_parts_at(tab, job.k, job.r) + (row_groups - 1) * lanes * cols * entry;
+  }
   if (smem > GF_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  job.row_groups = (int)row_groups;
   const int t = (int)threads, n = (int)grid, s = (int)smem;
-  if (entry == 4) return gf_core_launch_ec<4, 16>(job, groups, t, n, s, stream);
-  if (entry == 8) return gf_core_launch_ec<8, 8>(job, groups, t, n, s, stream);
-  return gf_core_launch_ec<16, 8>(job, groups, t, n, s, stream);
+  if (row_groups) {
+    if (entry == 4) return gf_core_launch_ec<4, 16, true>(job, groups, t, n, s, stream);
+    if (entry == 8) return gf_core_launch_ec<8, 8, true>(job, groups, t, n, s, stream);
+    return gf_core_launch_ec<16, 8, true>(job, groups, t, n, s, stream);
+  }
+  if (entry == 4) return gf_core_launch_ec<4, 16, false>(job, groups, t, n, s, stream);
+  if (entry == 8) return gf_core_launch_ec<8, 8, false>(job, groups, t, n, s, stream);
+  return gf_core_launch_ec<16, 8, false>(job, groups, t, n, s, stream);
 }

@@ -46,17 +46,17 @@ SIGNATURES = {
     },
     "gf_apply": {
         # (in, in_bs, out, out_bs, B, k, r, n, tables, offs, GF plan:
-        #  threads, grid, stream)
-        "gf_apply": [_P, _I64, _P, _I64, _I64, _I, _I, _I64, _P, _P, _I64, _I64, _P],
+        #  threads, grid, row_groups, stream)
+        "gf_apply": [_P, _I64, _P, _I64, _I64, _I, _I, _I64, _P, _P, _I64, _I64, _I64, _P],
     },
     "fused_encode_hash": {
-        # (data, B, d, p, n, tables, k0..k3, out, digests, GF plan (2),
+        # (data, B, d, p, n, tables, k0..k3, out, digests, GF plan (3),
         #  aligned, hash plan: msgs_per_cta, stages, stage_bytes,
         #  slot_bytes, smem_bytes, stream)
         "fused_encode_hash": [_P, _I64, _I, _I, _I64, _P,
-                              _U64, _U64, _U64, _U64, _P, _P, *[_I64] * 8, _P],
-        # (data, B, d, p, n, tables, out, GF plan (2), stream): the GF launch alone
-        "fused_gf_apply": [_P, _I64, _I, _I, _I64, _P, _P, _I64, _I64, _P],
+                              _U64, _U64, _U64, _U64, _P, _P, *[_I64] * 9, _P],
+        # (data, B, d, p, n, tables, out, GF plan (3), stream): the GF launch alone
+        "fused_gf_apply": [_P, _I64, _I, _I, _I64, _P, _P, _I64, _I64, _I64, _P],
     },
 }
 

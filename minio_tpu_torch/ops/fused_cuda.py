@@ -143,25 +143,28 @@ def _launch(kernel: str, data: torch.Tensor, tables: torch.Tensor, r: int, key: 
     out = torch.empty((b, r, n), dtype=torch.uint8, device=data.device)
     digests = torch.empty((b, d + r, 32), dtype=torch.uint8, device=data.device)
     rows_aligned = aligned((data.data_ptr(), b * d, n), (out.data_ptr(), b * r, n))
+    gf_plan = gf_cuda.plan(b, d, r, n)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_encode_hash(
             data.data_ptr(), b, d, r, n, tables.data_ptr(),
             *_build.key_words(key), out.data_ptr(), digests.data_ptr(),
-            *gf_cuda.plan(b, d, r, n).args(), rows_aligned, *plan(b * (d + r), n).args(),
+            *gf_plan.args(), rows_aligned, *plan(b * (d + r), n).args(),
             stream,
         )
     _build.check(rc, "fused_encode_hash")
     count_core_launch(kernel, rows_aligned)
+    gf_cuda.count_plan_launch(kernel, gf_plan)
     return out, digests
 
 
 def gf_apply_only(data: torch.Tensor, tables: torch.Tensor, r: int,
-                  waves: int | None = None) -> torch.Tensor:
+                  waves: int | None = None, small: bool | None = None) -> torch.Tensor:
     """K1's first launch alone on a CUDA tensor: data [B, d, n] and the GF
     core's [d, 256, E] tables of an [r, d] matrix (``_encode_tables``,
     ``_decode_tables``) -> out [B, r, n], on ``gf_cuda.plan``'s grid (or
-    one of ``waves`` waves).
+    one of ``waves`` waves, or with its small-batch regime forced on or
+    off by ``small``).
     Not a K1 launch: it counts nowhere (the smoke times it beside the
     whole kernel, and on grids of other sizes)."""
     if data.device.type != "cuda":
@@ -176,7 +179,8 @@ def gf_apply_only(data: torch.Tensor, tables: torch.Tensor, r: int,
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_gf_apply(data.data_ptr(), b, d, r, n, tables.data_ptr(),
-                                out.data_ptr(), *gf_cuda.plan(b, d, r, n, waves).args(), stream)
+                                out.data_ptr(), *gf_cuda.plan(b, d, r, n, waves, small).args(),
+                                stream)
     _build.check(rc, "fused_gf_apply")
     return out
 

@@ -165,4 +165,5 @@ def gf_apply_cuda(w_bits, data: torch.Tensor, out_shards: int, sub: int = 1,
     _build.check(err, "gf_apply")
     launches += 1
     launch_shapes[(b, kc, rc, h, sub)] += 1
+    gf_cuda.count_plan_launch("gf_apply", launch)
     return out[0] if squeeze else out

@@ -1000,7 +1000,7 @@ def _g_api_tpu(server) -> list[str]:
          [({}, ds.get("fused", 0))])
     # the hand kernels' launches in this process, as each wrapper counts
     # them (calls on CPU tensors run the plain versions and do not count)
-    from ..ops import bitrot_cuda, fused_cuda, rs_cuda
+    from ..ops import bitrot_cuda, fused_cuda, gf_cuda, rs_cuda
 
     _fmt(out, "minio_tpu_kernel_launches_total", "counter",
          [({"kernel": "fused_encode_hash"}, fused_cuda.encode_launches),
@@ -1024,6 +1024,12 @@ def _g_api_tpu(server) -> list[str]:
          [({"kernel": k, "path": path}, n)
           for (k, path), n in sorted(list(bitrot_cuda.core_launches.items()))],
          "HighwayHash core launches by kernel and read path")
+    # K1's and K3's GF-core launches by plan regime ("small": narrow
+    # tiles whose input rows are split over row groups; "wave")
+    _fmt(out, "minio_tpu_gf_core_launches_total", "counter",
+         [({"kernel": k, "plan": regime}, n)
+          for (k, regime), n in sorted(list(gf_cuda.plan_launches.items()))],
+         "GF(2^8) core launches by kernel and plan regime")
     _fmt(out, "minio_tpu_fused_failures_total", "counter",
          [({}, ds.get("fused_failures", 0))])
     _fmt(out, "minio_tpu_dispatch_bg_forced_blocks_total", "counter",

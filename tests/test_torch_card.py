@@ -370,3 +370,102 @@ def test_cuda_hash_at_a_pitch_and_back_to_back(n):
     assert torch.equal(bitrot_cuda.hash256_blocks(slab[:, :n]).cpu(), want)
     after = _path_launches()
     assert after.get(("hh_chain", "aligned"), 0) == before.get(("hh_chain", "aligned"), 0) + 1
+
+
+# -- the GF core's small-batch regime -----------------------------------------
+
+def _plan_launches():
+    from minio_tpu_torch.ops import gf_cuda
+
+    return dict(gf_cuda.plan_launches)
+
+
+def _counted(before: dict, after: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 6, 7, 8, 64])
+def test_cuda_k3_small_batch_into_the_slab(b):
+    """EC:4's route at B = 1-8 and 64 (K3 into the shard slab, then K2):
+    the parity is ops/rs.py's and the digests the numpy HighwayHash's,
+    byte for byte; the GF launch counts under its plan's regime, small
+    until 256-thread tiles fill three quarters of the SMs (B = 5 at
+    87,382 bytes), wave at B = 64."""
+    from minio_tpu_torch.ops import gf_cuda
+
+    d, p, n = 12, 4, 87382
+    data = np.random.default_rng(1000 + b).integers(0, 256, size=(b, d, n), dtype=np.uint8)
+    codec = rs_torch.get_torch_codec(d, p, "cuda")
+    before = _plan_launches()
+    par, dig = bitrot_torch.encode_and_hash(codec, bitrot_torch.shard_slab(codec, data))
+    regime = gf_cuda.plan(b, d, p, n).regime
+    assert _counted(before, _plan_launches()) == {("gf_apply", regime): 1}
+    assert regime == ("small" if b < 5 else "wave")
+    par = bitrot_torch.to_numpy(par)
+    ref = rs.get_codec(d, p)
+    shards = np.concatenate([data, par], axis=1)
+    for i in range(b):
+        assert np.array_equal(shards[i], ref.encode(np.concatenate([data[i], np.zeros(
+            (p, n), np.uint8)])))
+    assert np.array_equal(bitrot_torch.to_numpy(dig), hash256_batch_numpy(
+        shards.reshape(b * (d + p), n)).reshape(b, d + p, 32))
+
+
+def test_cuda_k3_small_batch_odd_row_starts():
+    """The cauchy 12+4 composite at h = 43,691 on one block: the a and b
+    halves start at odd addresses, and the rows' last columns are a
+    partial tile; the parity is the numpy cauchy codec's."""
+    d, p, h = 12, 4, 43691
+    w = cauchy.get_torch_codec(d, p, "cuda").w_composite
+    x = np.random.default_rng(43).integers(0, 256, size=(1, d, 2 * h), dtype=np.uint8)
+    before = _plan_launches()
+    out = rs_cuda.gf_apply_cuda(w, torch.from_numpy(x).cuda(), p, sub=2)
+    assert _counted(before, _plan_launches()) == {("gf_apply", "small"): 1}
+    full = np.concatenate([x[0], np.zeros((p, 2 * h), np.uint8)])
+    assert np.array_equal(out[0].cpu().numpy(), cauchy.get_codec(d, p).encode(full)[d:])
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_cuda_k1_small_batch_encode(b):
+    """K1 encode at 8+8, n = 131,072, B = 1 and 2: its GF launch on the
+    small-batch plan at B = 1 and the wave plan at B = 2 (128 tiles);
+    parity and digests are the numpy reference's."""
+    from minio_tpu_torch.ops import gf_cuda
+
+    d, p, n = 8, 8, 131072
+    data = np.random.default_rng(800 + b).integers(0, 256, size=(b, d, n), dtype=np.uint8)
+    before = _plan_launches()
+    par, dig = fused_cuda.fused_encode_hash(torch.from_numpy(data).cuda(), d, p)
+    regime = gf_cuda.plan(b, d, p, n).regime
+    assert _counted(before, _plan_launches()) == {("fused_encode_hash", regime): 1}
+    assert regime == ("small" if b == 1 else "wave")
+    ref = rs.get_codec(d, p)
+    shards = np.concatenate([data, par.cpu().numpy()], axis=1)
+    for i in range(b):
+        assert np.array_equal(shards[i], ref.encode(np.concatenate([data[i], np.zeros(
+            (p, n), np.uint8)])))
+    assert np.array_equal(dig.cpu().numpy(), hash256_batch_numpy(
+        shards.reshape(b * (d + p), n)).reshape(b, d + p, 32))
+
+
+def test_cuda_k1_small_batch_decode_and_wave():
+    """K1 decode of one block at 8+8 with data shards 0, 3 and 5 lost, on
+    the small-batch plan, rebuilds them; K1 encode at B = 64 counts wave."""
+    d, p, n = 8, 8, 131072
+    data = np.random.default_rng(88).integers(0, 256, size=(1, d, n), dtype=np.uint8)
+    full = rs.get_codec(d, p).encode(np.concatenate([data[0], np.zeros((p, n), np.uint8)]))
+    missing = (0, 3, 5)
+    present = tuple(i for i in range(d + p) if i not in missing)[:d]
+    before = _plan_launches()
+    got, dig = fused_cuda.fused_decode_hash(torch.from_numpy(full[list(present)][None]).cuda(),
+                                            d, p, present, missing)
+    assert _counted(before, _plan_launches()) == {("fused_decode_hash", "small"): 1}
+    assert np.array_equal(got[0].cpu().numpy(), full[list(missing)])
+    assert np.array_equal(dig[0].cpu().numpy(), hash256_batch_numpy(
+        np.concatenate([full[list(present)], full[list(missing)]])))
+    x = torch.randint(0, 256, (64, d, n), dtype=torch.uint8, device="cuda")
+    before = _plan_launches()
+    gp, _ = fused_cuda.fused_encode_hash(x, d, p)
+    assert _counted(before, _plan_launches()) == {("fused_encode_hash", "wave"): 1}
+    assert torch.equal(gp[[0, 63]].cpu(), fused_cuda.fused_plain(
+        x[[0, 63]].cpu(), rs.get_codec(d, p).parity_matrix)[0])

@@ -160,8 +160,8 @@ def test_k3_shared_memory_sizes():
 def test_build_interface_has_k3():
     assert "gf_apply.cu" in {s.rsplit("/", 1)[-1] for s in _build.sources()}
     argtypes = _build.SIGNATURES["gf_apply"]["gf_apply"]
-    assert len(argtypes) == 13  # ..., offsets, the GF core's threads and grid, stream
-    for i in (0, 2, 8, 9, 12):  # in, out, tables, offsets, stream
+    assert len(argtypes) == 14  # ..., offsets, the GF core's threads, grid, row groups, stream
+    for i in (0, 2, 8, 9, 13):  # in, out, tables, offsets, stream
         assert argtypes[i] is ctypes.c_void_p
 
 

@@ -294,20 +294,21 @@ def test_build_interface_declares_void_pointers():
             assert argtypes[-1] is ctypes.c_void_p
     # the hash core's launch plan goes to K1 and K2 as five int64 before
     # the stream, after the read path (one int64: every row start 16-byte
-    # aligned); the GF core's (threads, grid) to K1 and K3 as two int64
-    # (in K1 before the read path); K1's GF launch has an entry point of
-    # its own
+    # aligned); the GF core's (threads, grid, row groups) to K1 and K3 as
+    # three int64 (in K1 before the read path); K1's GF launch has an
+    # entry point of its own
     plan_args = [ctypes.c_int64] * len(bitrot_cuda.plan(16, 131072).args())
     gf_args = [ctypes.c_int64] * len(gf_cuda.plan(256, D, P, 131072).args())
+    assert len(gf_args) == 3
     assert _build.SIGNATURES["hh_chain"]["hh_chain"][-7:-1] == [ctypes.c_int64, *plan_args]
     assert _build.SIGNATURES["hh_chain"]["hh_chain"][-8] is ctypes.c_void_p  # digests
     assert _build.SIGNATURES["fused_encode_hash"]["fused_encode_hash"][-6:-1] == plan_args
     assert _build.SIGNATURES["fused_encode_hash"]["fused_encode_hash"][-7] is ctypes.c_int64
-    assert _build.SIGNATURES["fused_encode_hash"]["fused_encode_hash"][-9:-7] == gf_args
-    assert _build.SIGNATURES["fused_encode_hash"]["fused_encode_hash"][-10] is ctypes.c_void_p
-    assert _build.SIGNATURES["fused_encode_hash"]["fused_gf_apply"][-3:-1] == gf_args
-    assert _build.SIGNATURES["gf_apply"]["gf_apply"][-3:-1] == gf_args
-    assert len(_build.SIGNATURES["fused_encode_hash"]["fused_gf_apply"]) == 10
+    assert _build.SIGNATURES["fused_encode_hash"]["fused_encode_hash"][-10:-7] == gf_args
+    assert _build.SIGNATURES["fused_encode_hash"]["fused_encode_hash"][-11] is ctypes.c_void_p
+    assert _build.SIGNATURES["fused_encode_hash"]["fused_gf_apply"][-4:-1] == gf_args
+    assert _build.SIGNATURES["gf_apply"]["gf_apply"][-4:-1] == gf_args
+    assert len(_build.SIGNATURES["fused_encode_hash"]["fused_gf_apply"]) == 11
     assert _build.key_words(bytes(range(32)))[0] == int.from_bytes(bytes(range(8)), "little")
 
 

@@ -5,7 +5,11 @@ CPU can hold of it.
   rows, for r and k in 1..30; the entry width by r; the wrappers' table
   caches (K3 per matrix, K1 per encode geometry and per loss pattern).
 - ``gf_cuda.plan``: shared memory within a block, tiles that cover every
-  column exactly once, at least min(tiles, 132) blocks, one wave.
+  column exactly once, at least min(tiles, 132) blocks, one wave; 256
+  threads where those tiles fill three quarters of the SMs, else the
+  small-batch regime's
+  narrower tiles and row groups that split every input row exactly once,
+  and its launches counted by regime.
 - A model of the kernel's loads at every row offset 0-15 and at tails
   shorter than C (two aligned loads funnel-shifted, or byte loads).
 - A torch model of the kernel's arithmetic: the wide-entry gather, the XOR
@@ -45,6 +49,9 @@ MAIN_PATH = [
 # odd lengths, tails shorter than C, empty inputs, more than 16 output rows
 EDGES = [(b, k, r, n) for b in (0, 1, 3) for k, r in ((5, 3), (2, 30), (30, 2), (7, 17))
          for n in (0, 1, 7, 15, 17, 43691)]
+# the benchmark cells' launches: K3 at EC 12+4 on a 1 MiB block's shards
+# (87,382 bytes) and K1 at 8+8 (128 KiB), a few blocks a launch
+CELLS = [(b, 12, 4, 87382) for b in range(1, 9)] + [(b, 8, 8, 131072) for b in range(1, 5)]
 
 
 @pytest.fixture(autouse=True)
@@ -113,17 +120,40 @@ def test_wrapper_table_caches():
 
 # -- the launch plan --------------------------------------------------------------
 
-@pytest.mark.parametrize("b,k,r,n", MAIN_PATH + EDGES)
+def _tiles(b, n, threads, cols):
+    return b * -(-n // (threads * cols))
+
+
+@pytest.mark.parametrize("b,k,r,n", MAIN_PATH + EDGES + CELLS)
 def test_plan_fits_and_covers(b, k, r, n):
     p = gf_cuda.plan(b, k, r, n)
     assert (p.entry, p.groups) == (gf_cuda.entry_width(r), gf_cuda.groups(r))
     assert p.cols == gf_cuda.columns(p.entry) and p.entry * p.groups >= r
-    assert p.smem_bytes == gf_cuda.smem_bytes(k, r) <= 227 * 1024
-    assert p.threads == 256
+    # 256 threads where their tiles fill three quarters of the SMs; below
+    # that tiles of the most column warps (4, 2, 1) whose tiles fill the
+    # SMs, else of one, and row groups of them that split the k rows two
+    # at a time
+    if _tiles(b, n, 256, p.cols) >= 99:
+        assert (p.threads, p.row_groups, p.regime) == (256, 0, "wave")
+        assert p == gf_cuda.plan(b, k, r, n, small=False)
+        assert p.smem_bytes == gf_cuda.smem_bytes(k, r)
+        lanes = p.threads
+    else:
+        cw = next((w for w in (4, 2, 1) if _tiles(b, n, 32 * w, p.cols) >= 132), 1)
+        rg = min(-(-k // 2), 8 // cw)
+        assert (p.threads, p.row_groups, p.regime) == (32 * cw * rg, rg, "small")
+        assert p.smem_bytes == gf_cuda.split_smem_bytes(k, r, p.threads, rg)
+        lanes = 32 * cw
+        # row group q applies rows q, q + rg, ...: every input row once
+        rows = sorted(j for q in range(rg) for j in range(q, k, rg))
+        assert rows == list(range(k))
+    assert p.span == lanes * p.cols and p.threads % lanes == 0 and lanes % 32 == 0
+    assert p.smem_bytes <= 227 * 1024
     assert p.blocks_per_sm >= 1
     assert p.blocks_per_sm * (p.smem_bytes + 1024) <= 228 * 1024
-    assert p.blocks_per_sm * p.threads * gf_cuda.registers(p.entry) <= 65536
-    span = p.threads * p.cols
+    assert p.blocks_per_sm * p.threads * gf_cuda.registers(p.entry, p.regime == "small") <= 65536
+    assert p.blocks_per_sm * p.threads <= 2048 and p.blocks_per_sm <= 32
+    span = p.span
     # one wave on whole column tiles; more where rows end in a partial one
     assert p.waves == (1 if n % span == 0 else gf_cuda.UNEVEN_WAVES)
     assert p.grid == min(p.tiles, p.waves * 132 * p.blocks_per_sm)
@@ -133,13 +163,64 @@ def test_plan_fits_and_covers(b, k, r, n):
     assert p.tiles == b * per_item  # tile -> (item, column tile) = divmod(tile, per_item)
     # the kernel's column tile and thread -> columns: every column once
     starts = (np.arange(per_item)[:, None] * span
-              + np.arange(p.threads)[None, :] * p.cols).ravel()
+              + np.arange(lanes)[None, :] * p.cols).ravel()
     starts = starts[starts < n]
     cover = np.zeros(n + 1, dtype=np.int64)
     np.add.at(cover, starts, 1)
     np.add.at(cover, np.minimum(starts + p.cols, n), -1)
     assert (np.cumsum(cover)[:n] == 1).all()
-    assert p.args() == (p.threads, p.grid)  # the C side derives the rest from k, r
+    assert p.args() == (p.threads, p.grid, p.row_groups)  # the C side derives the rest
+
+
+@pytest.mark.parametrize("b,k,r,n", CELLS)
+def test_plan_small_batch_spreads_over_the_card(b, k, r, n):
+    """The cells' launches of one to a few blocks: the small-batch regime
+    until 256-thread tiles fill three quarters of the SMs (B >= 5 at
+    12+4, B >= 2 at 8+8), and at one block at 12+4 at least a tile an SM
+    (22 at 256 threads)."""
+    p = gf_cuda.plan(b, k, r, n)
+    wave = gf_cuda.plan(b, k, r, n, small=False)
+    assert wave.threads == 256 and wave.smem_bytes == gf_cuda.smem_bytes(k, r)
+    assert p.regime == ("small" if b < (5 if k == 12 else 2) else "wave")
+    if p.regime == "small":
+        assert p.tiles > wave.tiles and p.grid == p.tiles
+    one = gf_cuda.plan(1, 12, 4, 87382)
+    assert (one.tiles, one.span, one.row_groups, one.threads) == (171, 512, 6, 192)
+    one = gf_cuda.plan(1, 8, 8, 131072)
+    assert (one.tiles, one.span, one.row_groups, one.threads) == (256, 512, 4, 256)
+
+
+def test_plan_small_regime_falls_back_where_partials_do_not_fit():
+    """Tables that nearly fill a block leave no room for the row groups'
+    partial accumulators: the plan stays in the wave regime; forced off,
+    any small launch does."""
+    k, r = 28, 30  # 28 x 256 x 32 table bytes: 224 KiB
+    assert gf_cuda.smem_bytes(k, r) <= gf_cuda.MAX_SMEM
+    assert gf_cuda.split_smem_bytes(k, r, 256, 8) > gf_cuda.MAX_SMEM
+    assert gf_cuda.plan(1, k, r, 4096).regime == "wave"
+    assert gf_cuda.plan(1, 12, 4, 87382, small=False).regime == "wave"
+
+
+def test_plan_launches_counted_by_regime(monkeypatch):
+    """Each wrapper counts its GF-core launches by plan regime, and
+    /api/tpu exports them as minio_tpu_gf_core_launches_total{kernel, plan}."""
+    import collections
+
+    from minio_tpu_torch.server import metrics
+
+    monkeypatch.setattr(gf_cuda, "plan_launches", collections.Counter())
+    gf_cuda.count_plan_launch("gf_apply", gf_cuda.plan(1, 12, 4, 87382))
+    gf_cuda.count_plan_launch("gf_apply", gf_cuda.plan(64, 12, 4, 87382))
+    gf_cuda.count_plan_launch("fused_encode_hash", gf_cuda.plan(1, 8, 8, 131072))
+    gf_cuda.count_plan_launch("fused_encode_hash", gf_cuda.plan(1, 8, 8, 131072))
+    assert gf_cuda.plan_launches == {("gf_apply", "small"): 1, ("gf_apply", "wave"): 1,
+                                     ("fused_encode_hash", "small"): 2}
+    lines = [ln for ln in metrics._g_api_tpu(None)
+             if ln.startswith("minio_tpu_gf_core_launches_total{")]
+    assert lines == [
+        'minio_tpu_gf_core_launches_total{kernel="fused_encode_hash",plan="small"} 2',
+        'minio_tpu_gf_core_launches_total{kernel="gf_apply",plan="small"} 1',
+        'minio_tpu_gf_core_launches_total{kernel="gf_apply",plan="wave"} 1']
 
 
 def test_plan_main_path_spread():

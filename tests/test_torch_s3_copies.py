@@ -104,7 +104,9 @@ DELIBERATE = {
         "report to prove their traffic ran on the card at shapes the smoke "
         "then holds against the plain versions; and "
         "minio_tpu_hash_core_launches_total{kernel=...,path=...}: K1's and "
-        "K2's hash-core launches by read path (aligned or generic)",
+        "K2's hash-core launches by read path (aligned or generic); and "
+        "minio_tpu_gf_core_launches_total{kernel=...,plan=...}: K1's and "
+        "K3's GF-core launches by plan regime (small or wave)",
     ("server/sftp.py", "_SFTPSession._close"):
         GATEWAY_PUT,
     ("server/sftp.py", "_SFTPSession._rename"):
